@@ -1,0 +1,291 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (ilqg_mujoco_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Phases, each of which raises on failure:
+
+1. environment: versions, the card's name and power limit; exits non-zero
+   when no CUDA device is available;
+2. build: every CUDA kernel from the sources in the checkout, with the
+   compiler's register and spill report;
+3. main path: the batched cart-pole compat+FD iLQR solve (10 iterations)
+   and 3 closed-loop MPC frames at B=4096 in float64, through the entry
+   points a user calls (parallel/batch.py).  Every cost must be finite and
+   the Riccati kernel must have been launched once per iteration (40);
+   the solve is timed and split into forward pass / linearize / backward;
+4. cross-device check: instances 0..7 re-solved on the CPU must match the
+   card at the golden tolerances of tests/test_golden_compat.py;
+5. kernels: each CUDA kernel against its plain PyTorch version on the
+   card at the main path's shapes (and ragged batches), in float64 and
+   float32, timed with CUDA events, beside its memory/compute bound.
+
+The last line of standard output is the JSON device record; the line
+before it names the card and its power limit.  TF32 is switched off for
+matrix products and cuDNN, so float32 runs in full float32.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+
+from ilqg_mujoco_torch import ilqr  # noqa: E402
+from ilqg_mujoco_torch.kernels import _build, riccati  # noqa: E402
+from ilqg_mujoco_torch.models import envs  # noqa: E402
+from ilqg_mujoco_torch.ops.linearize import linearize_traj  # noqa: E402
+from ilqg_mujoco_torch.parallel import batch  # noqa: E402
+
+B = 4096        # the pendulum's batch in bench.py
+SEED = 0
+FRAMES = 3
+CHECK_B = 8
+# H100 SXM data-sheet peaks at 700 W: HBM bandwidth, float64 and float32
+# rates outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOP_S = {torch.float64: 34e12, torch.float32: 67e12}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def sync_time(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_close(name, got, want, rtol, atol):
+    """Raise unless |got - want| <= atol + rtol |want| everywhere; returns
+    the largest absolute error."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    err = (got - want).abs()
+    bad = err > atol + rtol * want.abs()
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements out of "
+                             f"tolerance, max abs err {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def phase_environment():
+    print("torch", torch.__version__, "cuda", torch.version.cuda)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        sys.exit(1)
+    print("nvcc:", _build.nvcc_version().strip().splitlines()[-1])
+    try:
+        import triton
+        print("triton", triton.__version__, "(not used)")
+    except ImportError:
+        print("triton: not installed (not used)")
+    print("device:", torch.cuda.get_device_name(0), "count",
+          torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("tf32: off for matmul and cudnn")
+
+
+def phase_build():
+    logs, dt = sync_time(_build.build_all)
+    print(f"build: {len(logs)} kernel(s) in {dt:.1f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "entry" in line:
+                print(f"  {name}: {line.strip()}")
+
+
+def phase_main_path(env, B, seed, device):
+    """Drive the main path; returns what later phases check."""
+    gen = torch.Generator().manual_seed(seed)
+    solve = batch.make_batched_solve(env)
+    mpc_step = batch.make_batched_mpc_step(env)
+    riccati.LAUNCHES = 0
+    (states, sols), t_init = sync_time(lambda: batch.init_batched(
+        env, B, qpos_noise=0.01, generator=gen, device=device,
+        dtype=torch.float64))
+    (sol, trace), t_solve = sync_time(lambda: solve(states, sols))
+    s, so, frame_costs, t_frames = states, sol, [], []
+    for _ in range(FRAMES):
+        (s, so, c), dt = sync_time(lambda: mpc_step(s, so))
+        frame_costs.append(c)
+        t_frames.append(dt)
+    launches = riccati.LAUNCHES
+
+    iters = env.ilqr.iterations
+    want = iters * (1 + FRAMES)
+    if launches != want:
+        raise AssertionError(f"Riccati kernel launched {launches} times on "
+                             f"the main path, expected {want}")
+    costs = torch.cat([trace.flatten()] + frame_costs)
+    if not bool(torch.isfinite(costs).all()):
+        raise AssertionError("non-finite cost on the main path")
+    if not bool(torch.isfinite(so.traj.qpos).all()):
+        raise AssertionError("non-finite trajectory after the MPC frames")
+    print(f"main path: B={B} init {t_init:.3f} s, solve ({iters} iterations)"
+          f" {t_solve:.3f} s, MPC frames "
+          + ", ".join(f"{t:.3f}" for t in t_frames) + " s")
+    print(f"main path: {B * iters / t_solve:.1f} iLQR iterations/s "
+          f"(float64, B={B}); mean cost {float(trace[:, 0].mean()):.6f} -> "
+          f"{float(trace[:, -1].mean()):.6f}; Riccati launches {launches}")
+    return dict(states=states, sols=sols, sol=sol, trace=trace,
+                launches=launches, t_solve=t_solve)
+
+
+def phase_split(env, main):
+    """One iteration of the solve from the main path's start, phase by
+    phase; returns that iteration's linearization for the kernel phase."""
+    m, cfg = env.model, env.ilqr
+    states, sols = main["states"], main["sols"]
+    traj, t_fwd = sync_time(lambda: ilqr.forward_pass(m, states, sols, cfg))
+    lin, t_lin = sync_time(lambda: linearize_traj(m, traj, env.cost_fn,
+                                                  cfg.lin))
+    _, t_bwd = sync_time(lambda: ilqr.backward_compat(m, traj, lin, cfg))
+    tot = t_fwd + t_lin + t_bwd
+    print(f"split of one iteration: forward_pass {t_fwd * 1e3:.1f} ms "
+          f"({100 * t_fwd / tot:.1f}%), linearize {t_lin * 1e3:.1f} ms "
+          f"({100 * t_lin / tot:.1f}%), backward (kernel) "
+          f"{t_bwd * 1e3:.3f} ms ({100 * t_bwd / tot:.2f}%)")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ilqr.iterate_compat(m, env.cost_fn, states, sols, cfg)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if kern:
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        print(f"profiler: {len(kern)} CUDA kernels per iLQR iteration, "
+              f"{busy:.1f} ms of kernel time")
+    else:
+        print("profiler: CUDA kernels per iteration not measured "
+              "(no device events)")
+    N = cfg.horizon
+    return (lin.A[:, :N], lin.B[:, :N], lin.gx, lin.gu[:, :N],
+            ilqr.knot_gaps(m, traj))
+
+
+def phase_cross_device(env, main):
+    cpu = lambda x: x[:CHECK_B].cpu()
+    sols = main["sols"]
+    sols_cpu = ilqr.ILQRState(sols.traj.map(cpu), cpu(sols.K), cpu(sols.k),
+                              cpu(sols.mu))
+    (sol_c, trace_c), dt = sync_time(lambda: batch.make_batched_solve(env)(
+        main["states"].map(cpu), sols_cpu))
+    sol = main["sol"]
+    errs = [
+        check_close("trace", main["trace"][:CHECK_B], trace_c, 1e-5, 0.0),
+        check_close("ctrl", sol.traj.ctrl[:CHECK_B], sol_c.traj.ctrl,
+                    1e-4, 1e-7),
+        check_close("K", sol.K[:CHECK_B], sol_c.K, 1e-3, 1e-6),
+        check_close("k", sol.k[:CHECK_B], sol_c.k, 1e-3, 1e-6)]
+    print(f"cross-device: instances 0..{CHECK_B - 1} on the CPU ({dt:.1f} s)"
+          " match the card; max abs err trace/ctrl/K/k "
+          + " ".join(f"{e:.2e}" for e in errs))
+
+
+def time_cuda(fn, reps, warmup):
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def riccati_bound_ms(args, dtype):
+    """Least time for the work on an H100 SXM: each input read once, each
+    output written once, over the HBM rate; the recursion's arithmetic
+    (4n^3 + 15n^2 + 14n + 10 operations per instance and step) over the
+    dtype's peak.  Returns (ms, 'bytes' | 'operations')."""
+    A, B = args[0], args[1]
+    Bt, N, n = B.shape[0], B.shape[1], B.shape[2]
+    elems = sum(x.numel() for x in args) + Bt * N * n + Bt * N  # + K, k
+    item = torch.finfo(dtype).bits // 8
+    t_bytes = elems * item / PEAK_BYTES_S
+    t_ops = Bt * N * (4 * n ** 3 + 15 * n ** 2 + 14 * n + 10) / \
+        PEAK_FLOP_S[dtype]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels(env, args, launches):
+    mu = env.ilqr.mu
+    record = dict(name="riccati_compat", route="cuda",
+                  source="ilqg_mujoco_torch/csrc/riccati_compat.cu",
+                  replaces="ilqg_mujoco_tpu/experimental/pallas_riccati.py:199",
+                  launches=launches, library_ms=None)
+    per_dtype = {}
+    for dt in (torch.float64, torch.float32):
+        full = [x.to(dt) for x in args]
+        errs = []
+        for label, a in (("B", full), ("5", [x[:5] for x in full]),
+                         ("B+1", [torch.cat([x, x[:1]]) for x in full])):
+            K, k = riccati.backward_compat_batched(*a, mu)
+            torch.cuda.synchronize()
+            Kr, kr = riccati.backward_compat_batched_ref(*a, mu)
+            for name, got, ref in (("K", K, Kr), ("k", k, kr)):
+                if dt == torch.float64:
+                    rtol, atol = 1e-9, 1e-11
+                else:
+                    # 20 steps with mu=1000 cancel ~3 of float32's 7 digits
+                    rtol, atol = 1e-4, 1e-6 * float(ref.abs().max())
+                errs.append(check_close(
+                    f"riccati {dt} Bt={a[1].shape[0]} {name}", got, ref,
+                    rtol, atol))
+        ms = time_cuda(lambda: riccati.backward_compat_batched(*full, mu),
+                       200, 10)
+        plain_ms = time_cuda(
+            lambda: riccati.backward_compat_batched_ref(*full, mu), 100, 3)
+        bound_ms, bound_by = riccati_bound_ms(full, dt)
+        per_dtype[dt] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+        print(f"riccati_compat {dt}: Bt={full[1].shape[0]} kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), max abs err {max(errs):.2e} over Bt in "
+              f"(B, 5, B+1)")
+    record.update(per_dtype[torch.float64], dtype="float64",
+                  float32=per_dtype[torch.float32])
+    return [record]
+
+
+def main():
+    phase_environment()
+    card = card_line()
+    print("card:", card)
+    phase_build()
+    env = envs.pendulum("compat", "fd")
+    main_out = phase_main_path(env, B, SEED, "cuda")
+    args = phase_split(env, main_out)
+    phase_cross_device(env, main_out)
+    kernels = phase_kernels(env, args, main_out["launches"])
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()
