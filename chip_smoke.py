@@ -16,7 +16,19 @@ Phases, each of which raises on failure:
    the solve is timed and split into forward pass / linearize / backward;
 4. cross-device check: instances 0..7 re-solved on the CPU must match the
    card at the golden tolerances of tests/test_golden_compat.py;
-5. kernels: each CUDA kernel against its plain PyTorch version on the
+5. tassa path: the batched cart-pole tassa+ad iLQG solve (10 iterations)
+   and 2 closed-loop MPC frames at B=4096 in float64, through the same
+   entry points.  Every cost must be finite, each instance's cost trace
+   monotone non-increasing and the mean cost must fall; the solve is
+   timed and one iteration split into linearize_ad / cost quadratics /
+   backward recursion / alpha rollout / selection.  This path launches
+   no hand-written kernel: the tassa recursion, the AD linearizer and
+   boxQP were never Pallas kernels;
+6. tassa cross-device check: instances 0..7 solved iteration by
+   iteration on the card and on the CPU must select the same alpha at
+   every iteration and match the main path's trace, controls, gains and
+   mu;
+7. kernels: each CUDA kernel against its plain PyTorch version on the
    card at the main path's shapes (and ragged batches), in float64 and
    float32, timed with CUDA events, beside its memory/compute bound.
 
@@ -46,6 +58,7 @@ from ilqg_mujoco_torch.parallel import batch  # noqa: E402
 B = 4096        # the pendulum's batch in bench.py
 SEED = 0
 FRAMES = 3
+TASSA_FRAMES = 2
 CHECK_B = 8
 # H100 SXM data-sheet peaks at 700 W: HBM bandwidth, float64 and float32
 # rates outside the tensor cores
@@ -147,6 +160,30 @@ def phase_main_path(env, B, seed, device):
                 launches=launches, t_solve=t_solve)
 
 
+def count_cuda_kernels(fn):
+    """CUDA kernels that ``fn`` launches, by the profiler: (count, summed
+    kernel ms), or None when the profiler records no device events."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return None
+    return len(kern), sum(e.time_range.elapsed_us() for e in kern) / 1e3
+
+
+def print_kernel_count(counted):
+    if counted is None:
+        print("profiler: CUDA kernels per iteration not measured "
+              "(no device events)")
+    else:
+        print(f"profiler: {counted[0]} CUDA kernels per iLQR iteration, "
+              f"{counted[1]:.1f} ms of kernel time")
+
+
 def phase_split(env, main):
     """One iteration of the solve from the main path's start, phase by
     phase; returns that iteration's linearization for the kernel phase."""
@@ -162,20 +199,8 @@ def phase_split(env, main):
           f"({100 * t_lin / tot:.1f}%), backward (kernel) "
           f"{t_bwd * 1e3:.3f} ms ({100 * t_bwd / tot:.2f}%)")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ilqr.iterate_compat(m, env.cost_fn, states, sols, cfg)
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    if kern:
-        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-        print(f"profiler: {len(kern)} CUDA kernels per iLQR iteration, "
-              f"{busy:.1f} ms of kernel time")
-    else:
-        print("profiler: CUDA kernels per iteration not measured "
-              "(no device events)")
+    print_kernel_count(count_cuda_kernels(
+        lambda: ilqr.iterate_compat(m, env.cost_fn, states, sols, cfg)))
     N = cfg.horizon
     return (lin.A[:, :N], lin.B[:, :N], lin.gx, lin.gu[:, :N],
             ilqr.knot_gaps(m, traj))
@@ -198,6 +223,141 @@ def phase_cross_device(env, main):
     print(f"cross-device: instances 0..{CHECK_B - 1} on the CPU ({dt:.1f} s)"
           " match the card; max abs err trace/ctrl/K/k "
           + " ".join(f"{e:.2e}" for e in errs))
+
+
+def tassa_iteration(env, x0, sol, times=None):
+    """One ``ilqr.iterate_tassa``, part by part (the same calls in the same
+    order).  With ``times`` (a dict) each part runs between two
+    synchronisations and its seconds go under its name.  Returns (solver
+    state, (B,) cost, (B,) selected index into (0,) + alphas, (B,) margin
+    of the acceptance decision relative to the baseline cost)."""
+    m, cfg, cost_fn = env.model, env.ilqr, env.cost_fn
+
+    def part(name, fn):
+        if times is None:
+            return fn()
+        out, times[name] = sync_time(fn)
+        return out
+
+    lin = part("linearize_ad", lambda: linearize_traj(m, sol.traj, cost_fn,
+                                                      cfg.lin))
+    quad = part("cost quadratics",
+                lambda: ilqr._cost_quadratics(cost_fn, m, sol.traj))
+    K, k, _, _, ok = part("backward recursion", lambda: ilqr._tassa_recursion(
+        m, lin, quad, sol.traj.ctrl, sol.mu, cfg))
+    trajs, costs = part(f"{len(cfg.alphas) + 1}-alpha rollout",
+                        lambda: ilqr.linesearch_rollouts(m, cost_fn, x0, sol,
+                                                         K, k, cfg))
+    new, cost, sel = part("selection", lambda: ilqr.linesearch_select(
+        cost_fn, sol, K, k, ok, trajs, costs, cfg))
+    # how far the accept/reject and argmin decisions were from a tie
+    best = costs[1:].sort(0).values
+    margin = torch.minimum((best[0] - costs[0]).abs(),
+                           best[1] - best[0]) / costs[0].abs()
+    return new, cost, sel, margin
+
+
+def phase_tassa(B, seed, device):
+    """Drive the tassa+ad path at B through the user's entry points; returns
+    what the cross-device check needs."""
+    env = envs.pendulum("tassa", "ad")
+    gen = torch.Generator().manual_seed(seed)
+    solve = batch.make_batched_solve(env)
+    mpc_step = batch.make_batched_mpc_step(env)
+    riccati.LAUNCHES = 0
+    (states, sols), t_init = sync_time(lambda: batch.init_batched(
+        env, B, qpos_noise=0.01, generator=gen, device=device,
+        dtype=torch.float64))
+    (sol, trace), t_solve = sync_time(lambda: solve(states, sols))
+    s, so, frame_costs, t_frames = states, sol, [], []
+    for _ in range(TASSA_FRAMES):
+        (s, so, c), dt = sync_time(lambda: mpc_step(s, so))
+        frame_costs.append(c)
+        t_frames.append(dt)
+    launches = riccati.LAUNCHES
+
+    costs = torch.cat([trace.flatten()] + frame_costs)
+    if not bool(torch.isfinite(costs).all()):
+        raise AssertionError("non-finite cost on the tassa path")
+    if not bool(torch.isfinite(so.traj.qpos).all()):
+        raise AssertionError("non-finite trajectory after the tassa frames")
+    rise = float(trace.diff(dim=1).max())
+    if rise > 1e-9:
+        raise AssertionError(f"a tassa cost trace rose by {rise:.3e}")
+    cost_init = ilqr._traj_cost(env.cost_fn, sols.traj)
+    c0, c1 = float(cost_init.mean()), float(trace[:, -1].mean())
+    if not c1 < c0:
+        raise AssertionError(f"tassa mean cost did not fall: {c0} -> {c1}")
+    iters = env.ilqr.iterations
+    print(f"tassa path: B={B} init {t_init:.3f} s, solve ({iters} "
+          f"iterations) {t_solve:.3f} s, MPC frames "
+          + ", ".join(f"{t:.3f}" for t in t_frames) + " s")
+    print(f"tassa path: {B * iters / t_solve:.1f} iLQR iterations/s "
+          f"(float64, B={B}); mean cost {c0:.6f} (initial rollout) -> "
+          f"{c1:.6f}; largest trace step {rise:.3e}; mu in "
+          f"[{float(sol.mu.min()):.3e}, {float(sol.mu.max()):.3e}]; "
+          f"hand-written kernel launches {launches}")
+
+    times = {}
+    tassa_iteration(env, states, sols, times)
+    tot = sum(times.values())
+    print("tassa split of one iteration: " + ", ".join(
+        f"{name} {t * 1e3:.1f} ms ({100 * t / tot:.1f}%)"
+        for name, t in times.items()))
+    print_kernel_count(count_cuda_kernels(lambda: ilqr.iterate_tassa(
+        env.model, env.cost_fn, states, sols, env.ilqr)))
+    return dict(env=env, states=states, sols=sols, sol=sol, trace=trace)
+
+
+def phase_tassa_cross_device(tassa):
+    """Instances 0..7 solved iteration by iteration on the card and on the
+    CPU: the same alpha at every iteration, and the main path's numbers."""
+    env, iters = tassa["env"], tassa["env"].ilqr.iterations
+    runs = {}
+    for where, move in (("card", lambda x: x[:CHECK_B]),
+                        ("cpu", lambda x: x[:CHECK_B].cpu())):
+        s0 = tassa["sols"]
+        x0 = tassa["states"].map(move)
+        sol = ilqr.ILQRState(s0.traj.map(move), move(s0.K), move(s0.k),
+                             move(s0.mu))
+        trace, sels, margins = [], [], []
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            sol, cost, sel, margin = tassa_iteration(env, x0, sol)
+            trace.append(cost)
+            sels.append(sel)
+            margins.append(margin)
+        runs[where] = dict(sol=sol, trace=torch.stack(trace, 1),
+                           sel=torch.stack(sels, 1).cpu(),
+                           margin=torch.stack(margins, 1).cpu(),
+                           seconds=time.perf_counter() - t0)
+    card, cpu = runs["card"], runs["cpu"]
+    if not torch.equal(card["sel"], cpu["sel"]):
+        raise AssertionError("the card and the CPU selected different "
+                             f"alphas:\n{card['sel']}\n{cpu['sel']}")
+    sol = tassa["sol"]
+    errs = [
+        check_close("tassa trace (card 8 vs B)", card["trace"],
+                    tassa["trace"][:CHECK_B], 1e-9, 0.0),
+        check_close("tassa trace", tassa["trace"][:CHECK_B], cpu["trace"],
+                    1e-9, 0.0),
+        check_close("tassa ctrl", sol.traj.ctrl[:CHECK_B],
+                    cpu["sol"].traj.ctrl, 1e-6, 1e-9),
+        check_close("tassa K", sol.K[:CHECK_B], cpu["sol"].K, 1e-6, 1e-8),
+        check_close("tassa k", sol.k[:CHECK_B], cpu["sol"].k, 1e-6, 1e-9),
+        check_close("tassa mu", sol.mu[:CHECK_B], cpu["sol"].mu, 1e-12,
+                    0.0)]
+    print(f"tassa cross-device: instances 0..{CHECK_B - 1} iterated on the "
+          f"card ({card['seconds']:.1f} s) and on the CPU "
+          f"({cpu['seconds']:.1f} s) select the same alphas; max abs err "
+          "trace(card 8 vs B)/trace/ctrl/K/k/mu "
+          + " ".join(f"{e:.2e}" for e in errs))
+    print("tassa selected alpha index per iteration (rows: instances; "
+          "0 = alpha 0 rebase, i = alphas[i-1]):")
+    for row in card["sel"].tolist():
+        print("  " + " ".join(f"{x:2d}" for x in row))
+    print(f"tassa smallest decision margin (relative): "
+          f"{float(card['margin'].min()):.3e}")
 
 
 def time_cuda(fn, reps, warmup):
@@ -279,6 +439,7 @@ def main():
     main_out = phase_main_path(env, B, SEED, "cuda")
     args = phase_split(env, main_out)
     phase_cross_device(env, main_out)
+    phase_tassa_cross_device(phase_tassa(B, SEED, "cuda"))
     kernels = phase_kernels(env, args, main_out["launches"])
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,12 +1,20 @@
-"""Batched FD linearization of the dynamics: the port of
-``ilqg_mujoco_tpu/ops/linearize.py`` for the reference-exact ``fd`` engine
-(reference src/mjderivative.cpp).
+"""Batched linearization of the dynamics: the port of
+``ilqg_mujoco_tpu/ops/linearize.py`` (reference src/mjderivative.cpp).
 
-The reference fans a thread pool out over the derivative columns; here all
-2*(2nv+nu) signed perturbations of every knot of every instance are one
-batch dim, so a whole trajectory batch is linearized by four sequential
-pinned solves (three warmup repetitions at the center, then every
-perturbation at once).  Protocol as in the reference:
+Three engines, as in the JAX package:
+
+* ``fd`` — reference-exact central differences (below);
+* ``ad`` — forward-mode AD of the pinned pipeline: exact qacc Jacobians,
+  Euler-assembled like the reference, and exact cost gradients;
+* ``exact`` — forward-mode AD of the full discrete step x' = step(x, u):
+  exact discrete-time (A, B) for any integrator (the Euler assembly of the
+  other two carries an O(h^2) model error under RK4).
+
+The reference's FD engine fans a thread pool out over the derivative
+columns; here all 2*(2nv+nu) signed perturbations of every knot of every
+instance are one batch dim, so a whole trajectory batch is linearized by
+four sequential pinned solves (three warmup repetitions at the center,
+then every perturbation at once).  Protocol as in the reference:
 
 * the center runs one full forward, then ``nwarmup-1`` acc-stage-only
   solves chaining ``qacc_warmstart`` (:64-68);
@@ -18,8 +26,13 @@ perturbation at once).  Protocol as in the reference:
 
 A, B are Euler-assembled like Differentiator::updateDerivatives
 (inc/differentiator.h:85-93), with the reference's transposed-A and
-scrambled-B buffer quirks behind flags.  The AD and exact engines come in
-slice 2.
+scrambled-B buffer quirks behind flags.
+
+The AD engines fold their 2nv+nu one-hot tangent directions into a batch
+dim the way the FD engine folds its perturbations, and push dual tensors
+(``torch.autograd.forward_ad``) through one pinned evaluation of every
+direction of every knot; the constraint solve contributes its implicit-diff
+JVP (``physics/solver.py``), not the CG iterations.
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..physics import forward as fwd
 from ..physics import smooth
@@ -40,7 +54,7 @@ CostFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class LinearizeConfig:
-    """FD knobs with the reference's exact defaults
+    """Linearizer knobs, FD ones with the reference's exact defaults
     (reference src/mjderivative.cpp:36-39)."""
     eps: float = 1e-6
     niter: int = 30          # pinned solver iterations
@@ -51,15 +65,22 @@ class LinearizeConfig:
     # the same layout bug on the ctrl Jacobian: identity for nu=1, an index
     # scramble for 1<nu<nv (see scramble_B)
     compat_scramble_B: bool = False
+    # 'fd' (reference-exact) | 'ad' (AD of qacc, Euler-assembled like the
+    # reference) | 'exact' (AD of the full discrete step: correct for RK4)
     engine: str = "fd"
 
     def __post_init__(self):
-        if self.engine in ("ad", "exact"):
-            raise NotImplementedError(
-                f"the {self.engine!r} linearize engine is not ported yet: "
-                "slice 2")
-        if self.engine != "fd":
+        if self.engine not in ("fd", "ad", "exact"):
             raise ValueError(f"unknown linearize engine {self.engine!r}")
+        if self.engine == "exact" and (self.compat_transpose_A
+                                       or self.compat_scramble_B):
+            # the compat flags reproduce the reference's Euler-assembly
+            # buffer quirks; linearize_exact has no Euler assembly, so the
+            # flags would be a silent no-op
+            raise ValueError(
+                "compat_transpose_A/compat_scramble_B have no effect with "
+                "engine='exact' (no Euler assembly to transpose/scramble); "
+                "use engine='fd' or 'ad' for compat-layout linearization")
 
 
 class LinOut(NamedTuple):
@@ -215,10 +236,97 @@ def linearize_fd(model: Model, state: State, cost_fn: CostFn,
     return LinOut(A=A, B=B, gx=gx, gu=gu, cost=cost0)
 
 
+def _directions(model: Model, state: State, warm: torch.Tensor):
+    """The states of a batch repeated over the P = 2nv+nu one-hot tangent
+    directions (a new dim after the batch dims), as dual tensors:
+    direction p < nv moves qpos along dof p (through ``integrate_pos``),
+    nv <= p < 2nv moves qvel, p >= 2nv moves ctrl.  Every copy starts the
+    solver from ``warm``.  Call inside ``fwAD.dual_level()``."""
+    nv, nu = model.nv, model.nu
+    P = 2 * nv + nu
+    batch = state.qpos.shape[:-1]
+    nb = len(batch)
+
+    def rep(x):
+        return x.unsqueeze(nb).expand(x.shape[:nb] + (P,) + x.shape[nb:])
+
+    eye = torch.eye(P, dtype=state.qpos.dtype, device=state.qpos.device)
+
+    def dual(cols):
+        tangent = eye[:, cols].expand(batch + (P, cols.stop - cols.start))
+        return fwAD.make_dual(torch.zeros_like(tangent),
+                              tangent.contiguous())
+
+    qpos = fwd.integrate_pos(model, rep(state.qpos), dual(slice(0, nv)), 1.0)
+    return State(time=rep(state.time), qpos=qpos,
+                 qvel=rep(state.qvel) + dual(slice(nv, 2 * nv)),
+                 qacc=rep(state.qacc), qacc_warmstart=rep(warm),
+                 qfrc_applied=rep(state.qfrc_applied),
+                 xfrc_applied=rep(state.xfrc_applied),
+                 ctrl=rep(state.ctrl) + dual(slice(2 * nv, P)))
+
+
+def linearize_ad(model: Model, state: State, cost_fn: CostFn,
+                 cfg: LinearizeConfig = LinearizeConfig()) -> LinOut:
+    """Forward-mode AD linearization of every state in a batch: exact
+    Jacobians of the pinned pipeline, exact cost gradients.  Same output
+    contract as :func:`linearize_fd`."""
+    nv = model.nv
+    warm = _center(model, state, cfg).qacc_warmstart
+    with fwAD.dual_level():
+        s = _directions(model, state, warm)
+        qacc = fwd.forward(model, s, iterations=cfg.niter,
+                           tolerance=0.0).qacc
+        J = fwAD.unpack_dual(qacc).tangent.transpose(-1, -2)  # (..., nv, P)
+        g = fwAD.unpack_dual(cost_fn(s.qpos, s.qvel, s.ctrl)).tangent
+    cost0 = cost_fn(state.qpos, state.qvel, state.ctrl)
+    A, B = _assemble(model, J[..., :nv], J[..., nv:2 * nv],
+                     J[..., 2 * nv:], cfg)
+    return LinOut(A=A, B=B, gx=g[..., :2 * nv], gu=g[..., 2 * nv:],
+                  cost=cost0)
+
+
+def _qpos_diff(model: Model, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Tangent-space configuration difference a ominus b in R^{nv} (slide
+    and hinge joints: plain subtraction)."""
+    if model.nq != model.nv:
+        jt = next(int(t) for t in model.jnt_type
+                  if int(t) not in (JNT_SLIDE, JNT_HINGE))
+        raise smooth.unported_joint(jt)
+    return a - b
+
+
+def linearize_exact(model: Model, state: State, cost_fn: CostFn,
+                    cfg: LinearizeConfig = LinearizeConfig()) -> LinOut:
+    """Exact discrete-time linearization of every state in a batch:
+    A = dx'/dx, B = dx'/du of the full step map (integrator included) by
+    forward-mode AD, in tangent-space coordinates at the center's next
+    state."""
+    nv = model.nv
+    warm = _center(model, state, cfg).qacc_warmstart
+    with fwAD.dual_level():
+        s = _directions(model, state, warm)
+        s2 = fwd.step(model, s, iterations=cfg.niter, tolerance=0.0)
+        # x' ominus x'_0 about the center's next state x'_0 (the primal):
+        # zero, with the Jacobian columns as its tangent
+        nxt = torch.cat([
+            _qpos_diff(model, s2.qpos, fwAD.unpack_dual(s2.qpos).primal),
+            s2.qvel], -1)
+        J = fwAD.unpack_dual(nxt).tangent.transpose(-1, -2)  # (..., 2nv, P)
+        g = fwAD.unpack_dual(cost_fn(s.qpos, s.qvel, s.ctrl)).tangent
+    cost0 = cost_fn(state.qpos, state.qvel, state.ctrl)
+    return LinOut(A=J[..., :2 * nv].contiguous(),
+                  B=J[..., 2 * nv:].contiguous(), gx=g[..., :2 * nv],
+                  gu=g[..., 2 * nv:], cost=cost0)
+
+
+_ENGINES = {"fd": linearize_fd, "ad": linearize_ad, "exact": linearize_exact}
+
+
 def linearize_traj(model: Model, states: State, cost_fn: CostFn,
                    cfg: LinearizeConfig = LinearizeConfig()) -> LinOut:
     """Linearize every knot of a (B, T) trajectory batch in one batched
     pass: this single call replaces the reference's N+1 serialized
     calcMJDerivatives invocations inside the backward loop
     (inc/ilqr.h:153-154)."""
-    return linearize_fd(model, states, cost_fn, cfg)
+    return _ENGINES[cfg.engine](model, states, cost_fn, cfg)

@@ -18,8 +18,11 @@ Two modes, as in the reference:
   iterates it would get alone.  The loop asks the host once per iteration
   whether any instance is still active.
 
-The implicit-differentiation JVP of the JAX package comes with the AD
-engines in slice 2.
+Forward-mode AD (``torch.autograd.forward_ad``, which the ``ad`` and
+``exact`` linearizers use) does not run through the CG iterations: the
+solve is a ``torch.autograd.Function`` whose ``jvp`` differentiates the
+optimality condition at the solution (see :class:`_SolveQacc`).  Without
+dual tensors the Function returns what ``_solve_cg`` returns, bit for bit.
 """
 
 from __future__ import annotations
@@ -45,12 +48,67 @@ def solve(M: torch.Tensor, Mfac, qacc_smooth: torch.Tensor, efc: Efc,
         return SolveOut(qacc_smooth, torch.zeros_like(qacc_smooth),
                         torch.zeros(qacc_smooth.shape[:-1], dtype=torch.int32,
                                     device=qacc_smooth.device))
-    x, niter = _solve_cg(M, Mfac, qacc_smooth, efc.J, efc.D, efc.aref,
-                         warmstart, iterations, tolerance, ls_iterations)
+    x, niter = _SolveQacc.apply(M, Mfac, qacc_smooth, efc.J, efc.D,
+                                efc.aref, warmstart, iterations, tolerance,
+                                ls_iterations)
     jar = linalg.mv(efc.J, x) - efc.aref
     f = torch.where(jar < 0, -efc.D * jar, torch.zeros_like(jar))
     qfrc_constraint = linalg.mv(efc.J.transpose(-1, -2), f)
     return SolveOut(x, qfrc_constraint, niter.to(torch.int32))
+
+
+class _SolveQacc(torch.autograd.Function):
+    """qacc from the projected-CG solver, with *implicit differentiation*
+    in forward mode (the port of the JAX package's ``_solve_qacc`` custom
+    JVP).
+
+    Differentiating through the unrolled CG iterations is wasteful (tangents
+    propagate through every iteration) and unstable: in float32 the
+    amplified tangent noise produced NaN humanoid Jacobians.  With the
+    active set A = {i : J_i x < aref_i, D_i > 0} frozen at the solution,
+        R(x) = M (x - a_s) + J_A^T D_A (J_A x - aref_A) = 0,
+    so (M + J_A^T D_A J_A) dx = -dR|_x: one SPD solve per tangent.  The
+    tangents of ``Mfac`` and ``warmstart`` are discarded; ``niter`` (carried
+    as a float) is not differentiable."""
+
+    @staticmethod
+    def forward(M, Mfac, qacc_smooth, J, D, aref, warmstart, iterations,
+                tolerance, ls_iterations):
+        return _solve_cg(M, Mfac, qacc_smooth, J, D, aref, warmstart,
+                         iterations, tolerance, ls_iterations)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        M, _, qacc_smooth, J, D, aref = inputs[:6]
+        x, niter = output
+        ctx.save_for_forward(M, qacc_smooth, J, D, aref, x)
+        ctx.mark_non_differentiable(niter)
+
+    @staticmethod
+    def jvp(ctx, dM, _dMfac, dqs, dJ, dD, daref, _dwarm, *_static):
+        M, qacc_smooth, J, D, aref, x = ctx.saved_tensors
+        Jt = J.transpose(-1, -2)
+        jar = linalg.mv(J, x) - aref
+        act = (jar < 0) & (D > 0)
+        zero = torch.zeros_like(jar)
+        Deff = torch.where(act, D, zero)
+        H = M + Jt @ (Deff[..., :, None] * J)
+        # dtype-relative ridge: at deeply penetrating states the stiffened
+        # H has cond ~ 1/eps_f32 and the Cholesky hits a negative pivot;
+        # the ridge caps the condition number at ~1/ridge_rel and perturbs
+        # tangents ~ridge_rel relatively
+        ridge_rel = 1e-6 if H.dtype == torch.float32 else 1e-12
+        dmax = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1).abs()
+                           .amax(-1), min=1.0)
+        eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+        H = H + (ridge_rel * dmax)[..., None, None] * eye
+        # an input without a tangent gets zeros (materialized)
+        dR = (linalg.mv(dM, x - qacc_smooth) - linalg.mv(M, dqs)
+              + linalg.mv(dJ.transpose(-1, -2), Deff * jar)
+              + linalg.mv(Jt, torch.where(act, dD, zero) * jar)
+              + linalg.mv(Jt, Deff * (linalg.mv(dJ, x) - daref)))
+        dx = -linalg.cho_solve(linalg.cholesky(H), dR)
+        return dx, None
 
 
 def _solve_cg(M, Mfac, qacc_smooth, J, D, aref, warmstart,

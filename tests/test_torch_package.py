@@ -96,16 +96,20 @@ def test_convert_round_trip():
 
 
 def test_later_slices_raise():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ilqr.ILQRConfig(mode="tassa")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        LinearizeConfig(engine="ad")
+    # slice 2 (the tassa mode with the ad and exact engines) constructs
+    ilqr.ILQRConfig(mode="tassa", lin=LinearizeConfig(engine="ad"))
+    LinearizeConfig(engine="exact")
     with pytest.raises(NotImplementedError, match="slice 3"):
         envs.make("hopper")
-    hopper = mjcf.load_model(
-        str(ROOT / "ilqg_mujoco_tpu" / "models" / "assets" / "hopper.xml"))
+    assets = ROOT / "ilqg_mujoco_tpu" / "models" / "assets"
+    hopper = mjcf.load_model(str(assets / "hopper.xml"))
     with pytest.raises(NotImplementedError, match="slice 3"):
         forward.step(hopper, make_state(hopper, 1, device="cpu"))
+    humanoid = mjcf.load_model(str(assets / "humanoid.xml"))
+    q = torch.zeros((1, humanoid.nq), dtype=torch.float64)
+    v = torch.zeros((1, humanoid.nv), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        ilqr.state_diff(humanoid, q, v, q, v)
 
 
 def test_cpu_wrapper_counts_no_launch():
