@@ -10,14 +10,14 @@ Phases, each of which raises on failure:
 2. build: every CUDA kernel from the sources in the checkout, with the
    compiler's register and spill report;
 3. main path: the batched cart-pole compat+FD iLQR solve (10 iterations)
-   and 3 closed-loop MPC frames at B=4096 in float64, through the entry
+   and 1 closed-loop MPC frame at B=4096 in float64, through the entry
    points a user calls (parallel/batch.py).  Every cost must be finite and
-   the Riccati kernel must have been launched once per iteration (40);
+   the Riccati kernel must have been launched once per iteration (20);
    the solve is timed and split into forward pass / linearize / backward;
 4. cross-device check: instances 0..7 re-solved on the CPU must match the
    card at the golden tolerances of tests/test_golden_compat.py;
 5. tassa path: the batched cart-pole tassa+ad iLQG solve (10 iterations)
-   and 2 closed-loop MPC frames at B=4096 in float64, through the same
+   and 1 closed-loop MPC frame at B=4096 in float64, through the same
    entry points.  Every cost must be finite, each instance's cost trace
    monotone non-increasing and the mean cost must fall; the solve is
    timed and one iteration split into linearize_ad / cost quadratics /
@@ -28,7 +28,26 @@ Phases, each of which raises on failure:
    iteration on the card and on the CPU must select the same alpha at
    every iteration and match the main path's trace, controls, gains and
    mu;
-7. kernels: each CUDA kernel against its plain PyTorch version on the
+7. hopper tassa+ad: the batched hopper iLQG solve (N=40, 10 iterations)
+   and 2 closed-loop MPC frames at B=1024 in float64 through the same
+   entry points, with contacts and the Euler integrator.  Every trace must
+   be finite and monotone, and the mean cost must fall; the solve is
+   timed, one iteration split, its CUDA kernels counted and the peak
+   memory read.  Instances 0..7, iterated on the card and on the CPU, must
+   select the same alpha at every iteration, with traces and gains within
+   1e-9 relative;
+8. hopper compat+fd: the batched compat solve with the reference's
+   transposed-A quirk (N=40, 10 iterations) and 1 MPC frame at B=1024,
+   its split, kernel count, peak memory and the share of instances that
+   end finite (compat has no linesearch: a noisy instance may diverge, as
+   the reference's would).  Instances 0..7 solved alone (B=8) on the card
+   and on the CPU must match at tests/test_golden_hopper.py's tolerances,
+   with non-finite values in the same places, and the B=1024 solve must
+   match the card's B=8 solve wherever both are finite.  Neither hopper
+   path launches a
+   hand-written kernel: the hopper has nu = 3 and the Riccati kernel
+   takes nu = 1;
+9. kernels: each CUDA kernel against its plain PyTorch version on the
    card at the main path's shapes (and ragged batches), in float64 and
    float32, timed with CUDA events, beside its memory/compute bound.
 
@@ -39,6 +58,7 @@ matrix products and cuDNN, so float32 runs in full float32.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -56,10 +76,23 @@ from ilqg_mujoco_torch.ops.linearize import linearize_traj  # noqa: E402
 from ilqg_mujoco_torch.parallel import batch  # noqa: E402
 
 B = 4096        # the pendulum's batch in bench.py
+HOPPER_B = 1024  # the hopper's batch in bench.py
 SEED = 0
-FRAMES = 3
-TASSA_FRAMES = 2
+FRAMES = 1
+TASSA_FRAMES = 1
+HOPPER_TASSA_FRAMES = 2
+HOPPER_COMPAT_FRAMES = 1
 CHECK_B = 8
+# card against CPU: {name: (rtol, atol, atol as a share of the largest
+# |value|)}
+CARTPOLE_TASSA_TOLS = dict(trace=(1e-9, 0.0, 0.0), ctrl=(1e-6, 1e-9, 0.0),
+                           K=(1e-6, 1e-8, 0.0), k=(1e-6, 1e-9, 0.0),
+                           mu=(1e-12, 0.0, 0.0))
+# the hopper's gates: traces and gains within 1e-9 relative (entries near
+# zero within 1e-9 of the largest entry)
+HOPPER_TASSA_TOLS = dict(trace=(1e-9, 0.0, 0.0), ctrl=(1e-9, 0.0, 1e-9),
+                         K=(1e-9, 0.0, 1e-9), k=(1e-9, 0.0, 1e-9),
+                         mu=(1e-12, 0.0, 0.0))
 # H100 SXM data-sheet peaks at 700 W: HBM bandwidth, float64 and float32
 # rates outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -81,19 +114,27 @@ def sync_time(fn):
     return out, time.perf_counter() - t0
 
 
-def check_close(name, got, want, rtol, atol):
+def check_close(name, got, want, rtol, atol, nonfinite=False):
     """Raise unless |got - want| <= atol + rtol |want| everywhere; returns
-    the largest absolute error."""
+    the largest absolute error.  With ``nonfinite`` the two may hold
+    non-finite values, but in the same places, and only the finite ones
+    are compared."""
     got, want = got.detach().cpu().double(), want.detach().cpu().double()
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
+    fin = torch.isfinite(got)
+    if not bool(fin.all()) and not nonfinite:
+        raise AssertionError(f"{name}: non-finite values")
+    if not torch.equal(fin, torch.isfinite(want)):
+        raise AssertionError(f"{name}: non-finite values in other places")
+    got, want = got[fin], want[fin]
     err = (got - want).abs()
     bad = err > atol + rtol * want.abs()
-    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+    if bool(bad.any()):
         raise AssertionError(f"{name}: {int(bad.sum())} elements out of "
                              f"tolerance, max abs err {float(err.max()):.3e}")
-    return float(err.max())
+    return float(err.max()) if err.numel() else 0.0
 
 
 def phase_environment():
@@ -175,13 +216,16 @@ def count_cuda_kernels(fn):
     return len(kern), sum(e.time_range.elapsed_us() for e in kern) / 1e3
 
 
-def print_kernel_count(counted):
+def print_kernel_count(fn):
+    """Count the CUDA kernels of one call of ``fn`` and print them."""
+    counted, dt = sync_time(lambda: count_cuda_kernels(fn))
     if counted is None:
         print("profiler: CUDA kernels per iteration not measured "
-              "(no device events)")
+              f"(no device events; profiled iteration {dt:.1f} s)")
     else:
         print(f"profiler: {counted[0]} CUDA kernels per iLQR iteration, "
-              f"{counted[1]:.1f} ms of kernel time")
+              f"{counted[1]:.1f} ms of kernel time (profiled iteration "
+              f"{dt:.1f} s)")
 
 
 def phase_split(env, main):
@@ -199,8 +243,8 @@ def phase_split(env, main):
           f"({100 * t_lin / tot:.1f}%), backward (kernel) "
           f"{t_bwd * 1e3:.3f} ms ({100 * t_bwd / tot:.2f}%)")
 
-    print_kernel_count(count_cuda_kernels(
-        lambda: ilqr.iterate_compat(m, env.cost_fn, states, sols, cfg)))
+    print_kernel_count(
+        lambda: ilqr.iterate_compat(m, env.cost_fn, states, sols, cfg))
     N = cfg.horizon
     return (lin.A[:, :N], lin.B[:, :N], lin.gx, lin.gu[:, :N],
             ilqr.knot_gaps(m, traj))
@@ -257,62 +301,69 @@ def tassa_iteration(env, x0, sol, times=None):
     return new, cost, sel, margin
 
 
-def phase_tassa(B, seed, device):
-    """Drive the tassa+ad path at B through the user's entry points; returns
+def phase_tassa(env, label, B, seed, device, frames):
+    """Drive a tassa path at B through the user's entry points; returns
     what the cross-device check needs."""
-    env = envs.pendulum("tassa", "ad")
     gen = torch.Generator().manual_seed(seed)
     solve = batch.make_batched_solve(env)
     mpc_step = batch.make_batched_mpc_step(env)
+    torch.cuda.reset_peak_memory_stats()
     riccati.LAUNCHES = 0
     (states, sols), t_init = sync_time(lambda: batch.init_batched(
         env, B, qpos_noise=0.01, generator=gen, device=device,
         dtype=torch.float64))
     (sol, trace), t_solve = sync_time(lambda: solve(states, sols))
     s, so, frame_costs, t_frames = states, sol, [], []
-    for _ in range(TASSA_FRAMES):
+    for _ in range(frames):
         (s, so, c), dt = sync_time(lambda: mpc_step(s, so))
         frame_costs.append(c)
         t_frames.append(dt)
     launches = riccati.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     costs = torch.cat([trace.flatten()] + frame_costs)
     if not bool(torch.isfinite(costs).all()):
-        raise AssertionError("non-finite cost on the tassa path")
+        raise AssertionError(f"non-finite cost on the {label} path")
     if not bool(torch.isfinite(so.traj.qpos).all()):
-        raise AssertionError("non-finite trajectory after the tassa frames")
+        raise AssertionError(f"non-finite trajectory after the {label} "
+                             "frames")
     rise = float(trace.diff(dim=1).max())
     if rise > 1e-9:
-        raise AssertionError(f"a tassa cost trace rose by {rise:.3e}")
+        raise AssertionError(f"a {label} cost trace rose by {rise:.3e}")
     cost_init = ilqr._traj_cost(env.cost_fn, sols.traj)
     c0, c1 = float(cost_init.mean()), float(trace[:, -1].mean())
     if not c1 < c0:
-        raise AssertionError(f"tassa mean cost did not fall: {c0} -> {c1}")
+        raise AssertionError(f"{label} mean cost did not fall: {c0} -> {c1}")
     iters = env.ilqr.iterations
-    print(f"tassa path: B={B} init {t_init:.3f} s, solve ({iters} "
+    print(f"{label} path: B={B} init {t_init:.3f} s, solve ({iters} "
           f"iterations) {t_solve:.3f} s, MPC frames "
           + ", ".join(f"{t:.3f}" for t in t_frames) + " s")
-    print(f"tassa path: {B * iters / t_solve:.1f} iLQR iterations/s "
+    print(f"{label} path: {B * iters / t_solve:.1f} iLQR iterations/s "
           f"(float64, B={B}); mean cost {c0:.6f} (initial rollout) -> "
           f"{c1:.6f}; largest trace step {rise:.3e}; mu in "
           f"[{float(sol.mu.min()):.3e}, {float(sol.mu.max()):.3e}]; "
-          f"hand-written kernel launches {launches}")
+          f"hand-written kernel launches {launches}; peak memory "
+          f"{peak:.2f} GiB")
 
     times = {}
     tassa_iteration(env, states, sols, times)
     tot = sum(times.values())
-    print("tassa split of one iteration: " + ", ".join(
+    print(f"{label} split of one iteration: " + ", ".join(
         f"{name} {t * 1e3:.1f} ms ({100 * t / tot:.1f}%)"
         for name, t in times.items()))
-    print_kernel_count(count_cuda_kernels(lambda: ilqr.iterate_tassa(
-        env.model, env.cost_fn, states, sols, env.ilqr)))
-    return dict(env=env, states=states, sols=sols, sol=sol, trace=trace)
+    print_kernel_count(lambda: ilqr.iterate_tassa(
+        env.model, env.cost_fn, states, sols, env.ilqr))
+    return dict(env=env, label=label, states=states, sols=sols, sol=sol,
+                trace=trace)
 
 
-def phase_tassa_cross_device(tassa):
+def phase_tassa_cross_device(tassa, tols):
     """Instances 0..7 solved iteration by iteration on the card and on the
-    CPU: the same alpha at every iteration, and the main path's numbers."""
+    CPU: the same alpha at every iteration, and the main path's numbers
+    within ``tols``: {name: (rtol, atol, atol as a share of the largest
+    |value|)}."""
     env, iters = tassa["env"], tassa["env"].ilqr.iterations
+    label = tassa["label"]
     runs = {}
     for where, move in (("card", lambda x: x[:CHECK_B]),
                         ("cpu", lambda x: x[:CHECK_B].cpu())):
@@ -333,31 +384,135 @@ def phase_tassa_cross_device(tassa):
                            seconds=time.perf_counter() - t0)
     card, cpu = runs["card"], runs["cpu"]
     if not torch.equal(card["sel"], cpu["sel"]):
-        raise AssertionError("the card and the CPU selected different "
-                             f"alphas:\n{card['sel']}\n{cpu['sel']}")
+        raise AssertionError(f"{label}: the card and the CPU selected "
+                             f"different alphas:\n{card['sel']}\n"
+                             f"{cpu['sel']}")
     sol = tassa["sol"]
+
+    def close(name, got, want):
+        rtol, atol, atol_rel = tols[name.split()[0]]
+        atol += atol_rel * float(want.detach().abs().max())
+        return check_close(f"{label} {name}", got, want, rtol, atol)
+
     errs = [
-        check_close("tassa trace (card 8 vs B)", card["trace"],
-                    tassa["trace"][:CHECK_B], 1e-9, 0.0),
-        check_close("tassa trace", tassa["trace"][:CHECK_B], cpu["trace"],
-                    1e-9, 0.0),
-        check_close("tassa ctrl", sol.traj.ctrl[:CHECK_B],
-                    cpu["sol"].traj.ctrl, 1e-6, 1e-9),
-        check_close("tassa K", sol.K[:CHECK_B], cpu["sol"].K, 1e-6, 1e-8),
-        check_close("tassa k", sol.k[:CHECK_B], cpu["sol"].k, 1e-6, 1e-9),
-        check_close("tassa mu", sol.mu[:CHECK_B], cpu["sol"].mu, 1e-12,
-                    0.0)]
-    print(f"tassa cross-device: instances 0..{CHECK_B - 1} iterated on the "
+        close("trace (card 8 vs B)", card["trace"], tassa["trace"][:CHECK_B]),
+        close("trace", tassa["trace"][:CHECK_B], cpu["trace"]),
+        close("ctrl", sol.traj.ctrl[:CHECK_B], cpu["sol"].traj.ctrl),
+        close("K", sol.K[:CHECK_B], cpu["sol"].K),
+        close("k", sol.k[:CHECK_B], cpu["sol"].k),
+        close("mu", sol.mu[:CHECK_B], cpu["sol"].mu)]
+    print(f"{label} cross-device: instances 0..{CHECK_B - 1} iterated on the "
           f"card ({card['seconds']:.1f} s) and on the CPU "
           f"({cpu['seconds']:.1f} s) select the same alphas; max abs err "
           "trace(card 8 vs B)/trace/ctrl/K/k/mu "
           + " ".join(f"{e:.2e}" for e in errs))
-    print("tassa selected alpha index per iteration (rows: instances; "
+    print(f"{label} selected alpha index per iteration (rows: instances; "
           "0 = alpha 0 rebase, i = alphas[i-1]):")
     for row in card["sel"].tolist():
         print("  " + " ".join(f"{x:2d}" for x in row))
-    print(f"tassa smallest decision margin (relative): "
+    print(f"{label} smallest decision margin (relative): "
           f"{float(card['margin'].min()):.3e}")
+
+
+def hopper_compat_env():
+    """The hopper golden configuration: compat+fd with the reference's
+    transposed-A quirk (tests/test_golden_hopper.py)."""
+    env = envs.make("hopper", mode="compat", engine="fd")
+    lin = dataclasses.replace(env.ilqr.lin, compat_transpose_A=True)
+    return dataclasses.replace(
+        env, ilqr=dataclasses.replace(env.ilqr, lin=lin))
+
+
+def phase_hopper_compat(B, seed, device):
+    """Drive the hopper compat+fd path at B through the user's entry
+    points, split one iteration and check instances 0..7 on the CPU."""
+    env = hopper_compat_env()
+    m, cfg = env.model, env.ilqr
+    gen = torch.Generator().manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    riccati.LAUNCHES = 0
+    (states, sols), t_init = sync_time(lambda: batch.init_batched(
+        env, B, qpos_noise=0.01, generator=gen, device=device,
+        dtype=torch.float64))
+    (sol, trace), t_solve = sync_time(
+        lambda: batch.make_batched_solve(env)(states, sols))
+    mpc_step = batch.make_batched_mpc_step(env)
+    s, so, t_frames, frame_costs = states, sol, [], []
+    for _ in range(HOPPER_COMPAT_FRAMES):
+        (s, so, c), dt = sync_time(lambda: mpc_step(s, so))
+        t_frames.append(dt)
+        frame_costs.append(c)
+    launches = riccati.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches:
+        raise AssertionError(f"the Riccati kernel launched {launches} times "
+                             "on the hopper (nu = 3)")
+    finite = (torch.isfinite(trace).all(1)
+              & torch.isfinite(sol.traj.qpos).flatten(1).all(1))
+    share = float(finite.double().mean())
+    if share == 0.0:
+        raise AssertionError("no hopper compat instance ended finite")
+    iters = cfg.iterations
+    tr = trace[finite]
+    print(f"hopper compat path: B={B} init {t_init:.3f} s, solve ({iters} "
+          f"iterations) {t_solve:.3f} s, MPC frames "
+          + ", ".join(f"{t:.3f}" for t in t_frames) + " s")
+    print(f"hopper compat path: {B * iters / t_solve:.1f} iLQR iterations/s "
+          f"(float64, B={B}); {int(finite.sum())} of {B} instances "
+          f"({100 * share:.1f}%) end finite; their mean cost "
+          f"{float(tr[:, 0].mean()):.6f} -> {float(tr[:, -1].mean()):.6f}; "
+          f"finite MPC frame costs {int(torch.isfinite(frame_costs[0]).sum())}"
+          f" of {B}; Riccati launches {launches}; peak memory {peak:.2f} GiB")
+
+    traj, t_fwd = sync_time(lambda: ilqr.forward_pass(m, states, sols, cfg))
+    lin, t_lin = sync_time(lambda: linearize_traj(m, traj, env.cost_fn,
+                                                  cfg.lin))
+    _, t_bwd = sync_time(lambda: ilqr.backward_compat(m, traj, lin, cfg))
+    tot = t_fwd + t_lin + t_bwd
+    print(f"hopper compat split of one iteration: forward_pass "
+          f"{t_fwd * 1e3:.1f} ms ({100 * t_fwd / tot:.1f}%), linearize "
+          f"{t_lin * 1e3:.1f} ms ({100 * t_lin / tot:.1f}%), backward "
+          f"(torch backward_pass_compat) {t_bwd * 1e3:.1f} ms "
+          f"({100 * t_bwd / tot:.1f}%)")
+    print_kernel_count(
+        lambda: ilqr.iterate_compat(m, env.cost_fn, states, sols, cfg))
+
+    # instances 0..7 solved alone on each device: the same inputs and the
+    # same batch, so the same operations
+    runs = {}
+    for where, move in (("card", lambda x: x[:CHECK_B]),
+                        ("cpu", lambda x: x[:CHECK_B].cpu())):
+        runs[where] = sync_time(lambda: batch.make_batched_solve(env)(
+            states.map(move), ilqr.ILQRState(sols.traj.map(move),
+                                             move(sols.K), move(sols.k),
+                                             move(sols.mu))))
+    ((sol_g, trace_g), dt_g), ((sol_c, trace_c), dt_c) = (runs["card"],
+                                                          runs["cpu"])
+    errs = [
+        check_close("hopper compat trace", trace_g, trace_c, 1e-4, 0.0,
+                    nonfinite=True),
+        check_close("hopper compat ctrl", sol_g.traj.ctrl, sol_c.traj.ctrl,
+                    1e-3, 1e-5, nonfinite=True),
+        check_close("hopper compat qpos", sol_g.traj.qpos, sol_c.traj.qpos,
+                    1e-4, 1e-6, nonfinite=True)]
+    print(f"hopper compat cross-device: instances 0..{CHECK_B - 1} "
+          f"({int(torch.isfinite(trace_c).all(1).sum())} finite) solved on "
+          f"the card ({dt_g:.1f} s) and on the CPU ({dt_c:.1f} s) match, "
+          "non-finite values in the same places; max abs err trace/ctrl/qpos "
+          + " ".join(f"{e:.2e}" for e in errs))
+    # the B=1024 solve against the card's solve of the same 8 instances:
+    # compat diverges in most instances, and the iteration at which one
+    # turns non-finite can hang on the last bit, which kernels chosen for
+    # another batch size round differently.  Values are held where both
+    # are finite; the entries finite in one only are counted.
+    fin_b, fin_g = torch.isfinite(trace[:CHECK_B]), torch.isfinite(trace_g)
+    both = fin_b & fin_g
+    err = check_close("hopper compat trace (B vs 8)", trace[:CHECK_B][both],
+                      trace_g[both], 1e-4, 0.0)
+    print(f"hopper compat B={trace.shape[0]} against B={CHECK_B} on the card:"
+          f" {int(both.sum())} trace entries finite in both, max abs err "
+          f"{err:.2e}; {int((fin_b != fin_g).sum())} entries finite in one "
+          "only")
 
 
 def time_cuda(fn, reps, warmup):
@@ -431,16 +586,33 @@ def phase_kernels(env, args, launches):
 
 
 def main():
+    t_start = time.perf_counter()
+
+    def mark(phase):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {phase}", flush=True)
+
     phase_environment()
     card = card_line()
     print("card:", card)
     phase_build()
+    mark("cart-pole compat+fd")
     env = envs.pendulum("compat", "fd")
     main_out = phase_main_path(env, B, SEED, "cuda")
     args = phase_split(env, main_out)
     phase_cross_device(env, main_out)
-    phase_tassa_cross_device(phase_tassa(B, SEED, "cuda"))
+    mark("cart-pole tassa+ad")
+    phase_tassa_cross_device(
+        phase_tassa(envs.pendulum("tassa", "ad"), "tassa", B, SEED, "cuda",
+                    TASSA_FRAMES), CARTPOLE_TASSA_TOLS)
+    mark("hopper tassa+ad")
+    phase_tassa_cross_device(
+        phase_tassa(envs.make("hopper"), "hopper tassa", HOPPER_B, SEED,
+                    "cuda", HOPPER_TASSA_FRAMES), HOPPER_TASSA_TOLS)
+    mark("hopper compat+fd")
+    phase_hopper_compat(HOPPER_B, SEED, "cuda")
+    mark("kernels")
     kernels = phase_kernels(env, args, main_out["launches"])
+    print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,12 @@
 """Task/environment layer: (model asset, step cost, solver config) records,
 the port of ``ilqg_mujoco_tpu/models/envs.py`` for the cart-pole (the
-reference's only complete env, reference inc/inverted_pendulum/*).
+reference's only complete env, reference inc/inverted_pendulum/*) and the
+hopper.
 
 The cost contract is the reference's ``stepCostFn_t``
 (reference inc/mjderivative.h:5): one scalar per state, here
 ``cost(qpos, qvel, ctrl)`` on tensors with any leading batch dims.  The
-hopper, humanoid and tumbler envs come with contacts (slice 3) and
-quaternion states (slice 4).
+humanoid and tumbler envs come with quaternion states (slice 4).
 """
 
 from __future__ import annotations
@@ -57,7 +57,29 @@ def pendulum(mode: str = "compat", engine: str = "fd") -> Env:
         warm_steps=10)
 
 
-REGISTRY = {"pendulum": pendulum}
+def hopper_cost(qpos, qvel, ctrl):
+    """Track a forward speed of 1 m/s while staying tall and upright, with
+    a small ctrl penalty (the JAX package's extension: the reference ships
+    the asset without an env)."""
+    return (2.0 * (qvel[..., 0] - 1.0) ** 2
+            + 10.0 * (qpos[..., 1] - 1.25) ** 2
+            + 1.0 * qpos[..., 2] ** 2
+            + 0.1 * (qvel[..., 3:] ** 2).sum(-1)
+            + 1e-3 * (ctrl ** 2).sum(-1))
+
+
+def hopper(mode: str = "tassa", engine: str = "ad") -> Env:
+    """Planar hopper (reference res/hopper.xml in local coordinates): nq =
+    nv = 6, nu = 3, contacts with the floor and between the links, Euler at
+    dt=0.002; N=40, 10 iterations per solve."""
+    return Env(
+        name="hopper", model=_load("hopper.xml"), cost_fn=hopper_cost,
+        ilqr=ILQRConfig(horizon=40, iterations=10, mode=mode,
+                        lin=LinearizeConfig(engine=engine)),
+        warm_steps=0)
+
+
+REGISTRY = {"pendulum": pendulum, "hopper": hopper}
 
 
 def _load(asset: str) -> Model:
@@ -69,6 +91,5 @@ def _load(asset: str) -> Model:
 def make(name: str, **kw) -> Env:
     if name not in REGISTRY:
         raise NotImplementedError(
-            f"env {name!r} is not ported yet (contacts: slice 3, quaternion "
-            "states: slice 4)")
+            f"env {name!r} is not ported yet (quaternion states: slice 4)")
     return REGISTRY[name](**kw)

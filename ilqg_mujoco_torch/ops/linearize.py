@@ -43,6 +43,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.autograd.forward_ad as fwAD
 
+from ..physics import collision
 from ..physics import forward as fwd
 from ..physics import smooth
 from ..physics.model import JNT_HINGE, JNT_SLIDE, Model, State
@@ -151,19 +152,21 @@ def _assemble(model: Model, Jq, Jv, Ju, cfg: LinearizeConfig):
 
 def _map_stage(fn, *stages):
     """Combine the batched tensors of PosStages (or VelStages) field by
-    field with ``fn``.  The limit rows' J is one constant for the whole batch
-    and passes through."""
+    field with ``fn``.  A J shared by the whole batch (limit rows only)
+    passes through."""
     first = stages[0]
-    if isinstance(first, fwd.PosStage):
-        efc = first.efc_pos
-        return fwd.PosStage(
-            kin=smooth.KinOut(*(fn(*xs) for xs in
-                                zip(*(s.kin for s in stages)))),
-            Mfac=fn(*(s.Mfac for s in stages)),
-            efc_pos=efc._replace(**{
-                f: fn(*(getattr(s.efc_pos, f) for s in stages))
-                for f in efc._fields if f != "J"}))
-    return fwd.VelStage(*(fn(*xs) for xs in zip(*stages)))
+    if not isinstance(first, fwd.PosStage):
+        return fwd.VelStage(*(fn(*xs) for xs in zip(*stages)))
+    efc = first.efc_pos
+    shared = efc.J.dim() < efc.D.dim() + 1
+    return fwd.PosStage(
+        kin=smooth.KinOut(*(fn(*xs) for xs in zip(*(s.kin for s in stages)))),
+        Mfac=fn(*(s.Mfac for s in stages)),
+        contacts=collision.Contacts(*(fn(*xs) for xs in
+                                      zip(*(s.contacts for s in stages)))),
+        efc_pos=efc._replace(**{
+            f: fn(*(getattr(s.efc_pos, f) for s in stages))
+            for f in efc._fields if not (f == "J" and shared)}))
 
 
 def linearize_fd(model: Model, state: State, cost_fn: CostFn,

@@ -6,14 +6,15 @@ mj_forwardSkip's skip classes name (reference src/mjderivative.cpp:92,
 124,178), so the FD linearizer evaluates only the stages a perturbation
 class invalidates:
 
-* :func:`pos_stage` — kinematics, mass matrix + factor, position-stage
-  constraint rows;
+* :func:`pos_stage` — kinematics, mass matrix + factor, collision,
+  position-stage constraint rows;
 * :func:`vel_stage` — bias/passive forces and the constraint aref;
 * :func:`acc_stage` — actuation, applied forces, smooth acceleration and
   the constraint solve.
 
-RK4 (the cart-pole's integrator) is ported; MuJoCo's semi-implicit Euler
-comes with contacts in slice 3.
+Integrators: MuJoCo's semi-implicit Euler with implicit joint damping (the
+hopper's, dt=0.002) and classic RK4 on the qpos manifold (the cart-pole's,
+dt=0.02).
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops import linalg
-from . import constraint, smooth, solver
-from .model import INT_RK4, JNT_HINGE, JNT_SLIDE, Model, State
+from . import collision, constraint, smooth, solver
+from .model import INT_RK4, JNT_HINGE, JNT_SLIDE, Model, State, device_arrays
 
 
 class ForwardAux(NamedTuple):
@@ -33,6 +34,7 @@ class ForwardAux(NamedTuple):
     qacc_smooth: torch.Tensor
     qfrc_constraint: torch.Tensor
     efc: constraint.Efc
+    contacts: collision.Contacts
     solver_niter: torch.Tensor
 
 
@@ -40,6 +42,7 @@ class PosStage(NamedTuple):
     """Position-stage products (functions of qpos only)."""
     kin: smooth.KinOut
     Mfac: torch.Tensor
+    contacts: collision.Contacts
     efc_pos: constraint.EfcPos
 
 
@@ -53,8 +56,9 @@ class VelStage(NamedTuple):
 def pos_stage(model: Model, qpos: torch.Tensor) -> PosStage:
     kin = smooth.kinematics(model, qpos)
     Mfac = linalg.cholesky(kin.M)
-    efc_pos = constraint.make_efc_pos(model, kin, qpos)
-    return PosStage(kin=kin, Mfac=Mfac, efc_pos=efc_pos)
+    contacts = collision.collide(model, kin.geom_xpos, kin.geom_xmat)
+    efc_pos = constraint.make_efc_pos(model, kin, qpos, contacts)
+    return PosStage(kin=kin, Mfac=Mfac, contacts=contacts, efc_pos=efc_pos)
 
 
 def vel_stage(model: Model, pos: PosStage, qpos: torch.Tensor,
@@ -101,7 +105,7 @@ def forward_full(model: Model, state: State,
         state.qacc_warmstart, it, tol)
     new_state = state.replace(qacc=out.qacc, qacc_warmstart=out.qacc)
     aux = ForwardAux(pos.kin, qfrc_smooth, qacc_smooth, out.qfrc_constraint,
-                     efc, out.niter)
+                     efc, pos.contacts, out.niter)
     return new_state, aux
 
 
@@ -121,6 +125,21 @@ def integrate_pos(model: Model, qpos: torch.Tensor, qvel: torch.Tensor,
         qadr, dadr = int(model.jnt_qposadr[j]), int(model.jnt_dofadr[j])
         cols[qadr] = cols[qadr] + h * qvel[..., dadr]
     return torch.stack(cols, -1)
+
+
+def _euler(model: Model, state: State, aux: ForwardAux) -> State:
+    """Semi-implicit Euler with implicit joint damping (mj_Euler): qacc
+    solves (M + h diag(damping)) qacc = qfrc_smooth + qfrc_constraint."""
+    h = model.opt.timestep
+    qacc = state.qacc
+    if (not model.opt.disable_eulerdamp) and float(
+            model.dof_damping.sum()) > 0:
+        damping = device_arrays(model, qacc.device, qacc.dtype).dof_damping
+        MhB = aux.kin.M + h * torch.diag(damping)
+        qacc = linalg.solve_psd(MhB, aux.qfrc_smooth + aux.qfrc_constraint)
+    qvel = state.qvel + h * qacc
+    qpos = integrate_pos(model, state.qpos, qvel, h)
+    return state.replace(time=state.time + h, qpos=qpos, qvel=qvel)
 
 
 _RK4_A = ((0.5,), (0.0, 0.5), (0.0, 0.0, 1.0))
@@ -156,8 +175,7 @@ def _rk4(model: Model, state: State, iterations, tolerance) -> State:
 def step(model: Model, state: State, iterations: Optional[int] = None,
          tolerance: Optional[float] = None) -> State:
     """mj_step: forward + integrate."""
-    if model.opt.integrator != INT_RK4:
-        raise NotImplementedError(
-            "the Euler integrator is not ported yet: slice 3")
-    st, _ = forward_full(model, state, iterations, tolerance)
-    return _rk4(model, st, iterations, tolerance)
+    st, aux = forward_full(model, state, iterations, tolerance)
+    if model.opt.integrator == INT_RK4:
+        return _rk4(model, st, iterations, tolerance)
+    return _euler(model, st, aux)

@@ -188,7 +188,8 @@ def on_device(model: Model, device, dtype, build):
 _FLOAT_FIELDS = ("body_pos", "body_quat", "body_ipos", "body_iquat",
                  "body_mass", "body_inertia", "jnt_pos", "jnt_axis",
                  "qpos0", "qpos_spring", "dof_armature", "dof_damping",
-                 "actuator_gear", "actuator_ctrlrange", "dof_mask")
+                 "actuator_gear", "actuator_ctrlrange", "dof_mask",
+                 "geom_pos", "geom_quat")
 
 
 def _upload(model: Model, dev, dtype) -> types.SimpleNamespace:
@@ -198,6 +199,9 @@ def _upload(model: Model, dev, dtype) -> types.SimpleNamespace:
               for f in _FLOAT_FIELDS}
     arrays["actuator_ctrllimited"] = torch.as_tensor(
         np.asarray(model.actuator_ctrllimited, dtype=bool), device=dev)
+    # an index on the device: indexing with host lists copies every call
+    arrays["geom_bodyid"] = torch.as_tensor(
+        np.asarray(model.geom_bodyid, dtype=np.int64), device=dev)
     return types.SimpleNamespace(**arrays)
 
 

@@ -22,8 +22,7 @@ from .model import (JNT_BALL, JNT_FREE, JNT_HINGE, JNT_SLIDE, Model,
 
 
 class KinOut(NamedTuple):
-    """Position-stage quantities (mj_fwdPosition analog).  The geom frames
-    that collision reads come with contacts in slice 3."""
+    """Position-stage quantities (mj_fwdPosition analog)."""
     xpos: torch.Tensor      # (..., nbody,3) body frame origin, world
     xquat: torch.Tensor     # (..., nbody,4)
     xmat: torch.Tensor      # (..., nbody,3,3)
@@ -34,6 +33,8 @@ class KinOut(NamedTuple):
     S: torch.Tensor         # (..., nv,6) dof motion axes, world-origin Plücker
     inertia: torch.Tensor   # (..., nbody,6,6) spatial inertia, world origin
     M: torch.Tensor         # (..., nv,nv) joint-space inertia (with armature)
+    geom_xpos: torch.Tensor  # (..., ngeom,3) geom frame origin, world
+    geom_xmat: torch.Tensor  # (..., ngeom,3,3) geom frame, world
 
 
 def unported_joint(jt: int) -> NotImplementedError:
@@ -132,8 +133,13 @@ def kinematics(model: Model, qpos: torch.Tensor) -> KinOut:
     M = torch.einsum("...biy,...bjy->...ij", tmp, SB)
     M = M + torch.diag(c.dof_armature)
 
+    gb = c.geom_bodyid
+    geom_xpos = xpos[..., gb, :] + (xmat[..., gb, :, :]
+                                    @ c.geom_pos[..., None]).squeeze(-1)
+    geom_xmat = xmat[..., gb, :, :] @ spatial.quat_to_mat(c.geom_quat)
+
     return KinOut(xpos, xquat, xmat, xipos, ximat, xanchor, xaxis, S,
-                  inertia, M)
+                  inertia, M, geom_xpos, geom_xmat)
 
 
 def bias_force(model: Model, kin: KinOut, qvel: torch.Tensor) -> torch.Tensor:

@@ -99,12 +99,18 @@ def test_later_slices_raise():
     # slice 2 (the tassa mode with the ad and exact engines) constructs
     ilqr.ILQRConfig(mode="tassa", lin=LinearizeConfig(engine="ad"))
     LinearizeConfig(engine="exact")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        envs.make("hopper")
+    # slice 3 (contacts, Euler): the hopper constructs and steps
+    hopper = envs.make("hopper").model
+    s = forward.step(hopper, make_state(hopper, 1, device="cpu"))
+    assert s.qpos.shape == (1, 6) and bool(torch.isfinite(s.qpos).all())
+    # slice 4 (quaternion states): the tumbler and the humanoid raise
+    for name in ("tumbler", "humanoid"):
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            envs.make(name)
     assets = ROOT / "ilqg_mujoco_tpu" / "models" / "assets"
-    hopper = mjcf.load_model(str(assets / "hopper.xml"))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        forward.step(hopper, make_state(hopper, 1, device="cpu"))
+    tumbler = mjcf.load_model(str(assets / "tumbler.xml"))
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        forward.step(tumbler, make_state(tumbler, 1, device="cpu"))
     humanoid = mjcf.load_model(str(assets / "humanoid.xml"))
     q = torch.zeros((1, humanoid.nq), dtype=torch.float64)
     v = torch.zeros((1, humanoid.nv), dtype=torch.float64)
