@@ -49,7 +49,17 @@ Phases, each of which raises on failure:
    takes nu = 1;
 9. kernels: each CUDA kernel against its plain PyTorch version on the
    card at the main path's shapes (and ragged batches), in float64 and
-   float32, timed with CUDA events, beside its memory/compute bound.
+   float32.  The Riccati kernel is also held to its plain version on
+   seeded inputs for every even n up to riccati.MAX_N at Bt in (5, 257),
+   and timed on the main path's inputs with CUDA events: ``ms`` as a loop
+   of 200 eager wrapper calls at B=4096 (the host's cost per call
+   included), ``ms_graph`` and ``ms_b8`` L2 warm at B=4096 and at B=8
+   (launches replayed from a CUDA graph, so the host's launch cost is not
+   timed), and ``ms_cold`` L2 cold at B=4096 (a 128 MB buffer written
+   before each launch, each launch between its own events), beside its
+   memory/compute bound and the plain version's time.  The build phase
+   gates the compiler's report: no spills in the float64 kernel at n = 4
+   and 8.
 
 The last line of standard output is the JSON device record; the line
 before it names the card and its power limit.  TF32 is switched off for
@@ -61,10 +71,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import re
+import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
@@ -97,6 +110,12 @@ HOPPER_TASSA_TOLS = dict(trace=(1e-9, 0.0, 0.0), ctrl=(1e-9, 0.0, 1e-9),
 # rates outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = {torch.float64: 34e12, torch.float32: 67e12}
+# the Riccati kernel's correctness sweep: n = 2 nv, ragged batches, horizon
+SWEEP_N = tuple(range(2, riccati.MAX_N + 1, 2))
+SWEEP_BT = (5, 257)
+SWEEP_HORIZON = 20
+NO_SPILL_N = (4, 8)          # float64 instantiations that must not spill
+L2_FLUSH_BYTES = 128 * 2 ** 20
 
 
 def card_line() -> str:
@@ -155,13 +174,49 @@ def phase_environment():
     print("tf32: off for matmul and cudnn")
 
 
+def ptxas_report(log):
+    """{(dtype name, n): (registers, spill bytes stored + loaded)} for each
+    Riccati kernel instantiation in an ``nvcc -Xptxas -v`` log."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"riccati_compat_kernelI([df])Li(\d+)E", m.group(1))
+            key = (("float64" if k.group(1) == "d" else "float32"),
+                   int(k.group(2))) if k else None
+            if key:
+                out[key] = [None, 0]
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[key][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def phase_build():
+    """Build every kernel; returns the Riccati kernel's registers by dtype
+    name and n, and raises if a float64 kernel in NO_SPILL_N spills."""
     logs, dt = sync_time(_build.build_all)
     print(f"build: {len(logs)} kernel(s) in {dt:.1f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "entry" in line:
-                print(f"  {name}: {line.strip()}")
+    report = ptxas_report(logs["riccati_compat"])
+    registers = {}
+    for (dt_name, n), (regs, spill) in sorted(report.items()):
+        registers.setdefault(dt_name, {})[n] = regs
+        print(f"  riccati_compat {dt_name} n={n}: {regs} registers, "
+              f"{spill} bytes spilled")
+    for n in NO_SPILL_N:
+        if ("float64", n) not in report:
+            raise AssertionError(f"no ptxas report for the float64 kernel at "
+                                 f"n={n}")
+        if report[("float64", n)][1]:
+            raise AssertionError(f"the float64 kernel spills at n={n}")
+    return registers
 
 
 def phase_main_path(env, B, seed, device):
@@ -245,9 +300,15 @@ def phase_split(env, main):
 
     print_kernel_count(
         lambda: ilqr.iterate_compat(m, env.cost_fn, states, sols, cfg))
-    N = cfg.horizon
+    return kernel_args(env, traj, lin)
+
+
+def kernel_args(env, traj, lin):
+    """The Riccati kernel's inputs in one compat iteration, as
+    ``ilqr.backward_compat`` passes them (views of the linearization)."""
+    N = env.ilqr.horizon
     return (lin.A[:, :N], lin.B[:, :N], lin.gx, lin.gu[:, :N],
-            ilqr.knot_gaps(m, traj))
+            ilqr.knot_gaps(env.model, traj))
 
 
 def phase_cross_device(env, main):
@@ -529,6 +590,52 @@ def time_cuda(fn, reps, warmup):
     return start.elapsed_time(end) / reps
 
 
+def capture(fn, calls):
+    """A CUDA graph of ``calls`` calls of ``fn`` (warmed on a side stream
+    first, as torch.cuda.graphs asks)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return graph
+
+
+def time_warm(fn, calls=50, replays=10):
+    """Device ms per call of ``fn``, its inputs warm in L2: ``calls`` calls
+    captured in one CUDA graph, replayed ``replays`` times between two
+    events, so the host's launch cost is not timed."""
+    graph = capture(fn, calls)
+    graph.replay()
+    return time_cuda(graph.replay, replays, 1) / calls
+
+
+def time_cold(fn, reps=30):
+    """Median device ms of one call of ``fn`` with L2 cold: before each call
+    a 128 MB buffer (over twice the 50 MB L2) is written, and each call,
+    replayed from a one-call CUDA graph, lies between its own events.  The
+    write keeps the card busy while the host enqueues the call."""
+    graph = capture(fn, 1)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    events = []
+    for _ in range(reps):
+        flush.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
 def riccati_bound_ms(args, dtype):
     """Least time for the work on an H100 SXM: each input read once, each
     output written once, over the HBM rate; the recursion's arithmetic
@@ -545,41 +652,90 @@ def riccati_bound_ms(args, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels(env, args, launches):
+def random_riccati_args(Bt, N, n, seed, device):
+    """Seeded inputs for the Riccati kernel at any n (no nu = 1 model but
+    the cart-pole exists to draw them from): A = I + 0.05 randn, B small,
+    |r| >= 0.1, float64."""
+    rng = np.random.default_rng(seed)
+    A = np.eye(n) + 0.05 * rng.standard_normal((Bt, N, n, n))
+    B = 0.1 * rng.standard_normal((Bt, N, n, 1))
+    gx = rng.standard_normal((Bt, N + 1, n))
+    r = rng.standard_normal((Bt, N, 1))
+    gu = np.sign(r) * (0.1 + np.abs(r))
+    diffs = 0.01 * rng.standard_normal((Bt, N, n))
+    return [torch.tensor(x, device=device) for x in (A, B, gx, gu, diffs)]
+
+
+def riccati_tols(dtype, n, ref):
+    """(rtol, atol) of the kernel against its plain version.  float64:
+    tests/test_pallas_riccati.py's.  float32: 20 steps with mu=1000 cancel
+    about 3 of float32's 7 digits (rtol 1e-4, atol 1e-6 max|ref|); each
+    step's products sum n terms, and the plain version in float32 strayed
+    from float64 by up to 1.3e-7 max|ref| at n=2 and 7.4e-7 at n=32 on
+    random_riccati_args (a CPU run), so above n = 8 atol grows as n / 8."""
+    if dtype == torch.float64:
+        return 1e-9, 1e-11
+    return 1e-4, 1e-6 * float(ref.abs().max()) * max(1.0, n / 8)
+
+
+def check_riccati(args, mu, label):
+    """The kernel against its plain version on ``args``; returns the
+    largest absolute error of K and k."""
+    dt, n = args[0].dtype, args[1].shape[2]
+    K, k = riccati.backward_compat_batched(*args, mu)
+    torch.cuda.synchronize()
+    Kr, kr = riccati.backward_compat_batched_ref(*args, mu)
+    return max(check_close(f"riccati {label} {dt} n={n} Bt={args[1].shape[0]}"
+                           f" {name}", got, ref, *riccati_tols(dt, n, ref))
+               for name, got, ref in (("K", K, Kr), ("k", k, kr)))
+
+
+def phase_kernels(env, args, launches, registers):
     mu = env.ilqr.mu
     record = dict(name="riccati_compat", route="cuda",
                   source="ilqg_mujoco_torch/csrc/riccati_compat.cu",
                   replaces="ilqg_mujoco_tpu/experimental/pallas_riccati.py:199",
-                  launches=launches, library_ms=None)
+                  launches=launches, library_ms=None,
+                  n_checked=list(SWEEP_N), registers=registers)
     per_dtype = {}
     for dt in (torch.float64, torch.float32):
         full = [x.to(dt) for x in args]
-        errs = []
-        for label, a in (("B", full), ("5", [x[:5] for x in full]),
-                         ("B+1", [torch.cat([x, x[:1]]) for x in full])):
-            K, k = riccati.backward_compat_batched(*a, mu)
-            torch.cuda.synchronize()
-            Kr, kr = riccati.backward_compat_batched_ref(*a, mu)
-            for name, got, ref in (("K", K, Kr), ("k", k, kr)):
-                if dt == torch.float64:
-                    rtol, atol = 1e-9, 1e-11
-                else:
-                    # 20 steps with mu=1000 cancel ~3 of float32's 7 digits
-                    rtol, atol = 1e-4, 1e-6 * float(ref.abs().max())
-                errs.append(check_close(
-                    f"riccati {dt} Bt={a[1].shape[0]} {name}", got, ref,
-                    rtol, atol))
-        ms = time_cuda(lambda: riccati.backward_compat_batched(*full, mu),
-                       200, 10)
+        errs = [check_riccati(a, mu, "cart-pole") for a in (
+            full, [x[:5] for x in full],
+            [torch.cat([x, x[:1]]) for x in full])]
+        sweep = {}
+        for n in SWEEP_N:
+            sweep[n] = max(check_riccati(
+                [x.to(dt) for x in random_riccati_args(
+                    Bt, SWEEP_HORIZON, n, SEED + n, "cuda")], mu, "random")
+                for Bt in SWEEP_BT)
+        b8 = [x[:CHECK_B] for x in full]
+        launch = lambda a: lambda: riccati.backward_compat_batched(*a, mu)
+        ms = time_cuda(launch(full), 200, 10)
+        ms_graph = time_warm(launch(full))
+        ms_cold = time_cold(launch(full))
+        ms_b8 = time_warm(launch(b8))
         plain_ms = time_cuda(
             lambda: riccati.backward_compat_batched_ref(*full, mu), 100, 3)
+        plain_ms_b8 = time_cuda(
+            lambda: riccati.backward_compat_batched_ref(*b8, mu), 20, 2)
         bound_ms, bound_by = riccati_bound_ms(full, dt)
+        bound_ms_b8, _ = riccati_bound_ms(b8, dt)
         per_dtype[dt] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
-        print(f"riccati_compat {dt}: Bt={full[1].shape[0]} kernel {ms:.4f} "
-              f"ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), max abs err {max(errs):.2e} over Bt in "
-              f"(B, 5, B+1)")
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             ms_graph=ms_graph, ms_cold=ms_cold, ms_b8=ms_b8,
+                             plain_ms_b8=plain_ms_b8, bound_ms_b8=bound_ms_b8,
+                             sweep_max_abs_err=sweep)
+        B = full[1].shape[0]
+        print(f"riccati_compat {dt}: B={B} eager {ms:.4f} ms, L2 warm "
+              f"(graph) {ms_graph:.4f} ms, L2 cold {ms_cold:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} ms; "
+              f"B={CHECK_B} warm (graph) {ms_b8:.4f} ms, bound "
+              f"{bound_ms_b8:.6f} ms, plain {plain_ms_b8:.3f} ms; max abs err "
+              f"{max(errs):.2e} over Bt in (B, 5, B+1)")
+        print(f"riccati_compat {dt}: random inputs, N={SWEEP_HORIZON}, Bt in "
+              f"{SWEEP_BT}, max abs err by n: " + ", ".join(
+                  f"{n}: {e:.2e}" for n, e in sweep.items()))
     record.update(per_dtype[torch.float64], dtype="float64",
                   float32=per_dtype[torch.float32])
     return [record]
@@ -594,7 +750,7 @@ def main():
     phase_environment()
     card = card_line()
     print("card:", card)
-    phase_build()
+    registers = phase_build()
     mark("cart-pole compat+fd")
     env = envs.pendulum("compat", "fd")
     main_out = phase_main_path(env, B, SEED, "cuda")
@@ -611,7 +767,7 @@ def main():
     mark("hopper compat+fd")
     phase_hopper_compat(HOPPER_B, SEED, "cuda")
     mark("kernels")
-    kernels = phase_kernels(env, args, main_out["launches"])
+    kernels = phase_kernels(env, args, main_out["launches"], registers)
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

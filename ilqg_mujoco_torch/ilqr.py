@@ -11,10 +11,10 @@ Modes
   mu added to V and never removed, rank-1 Hessians Q = q q^T and
   R = r r^T, the knot-gap term c = x*_{t+1} - x*_t, full magnitude k, and
   unused terminal gains.  Each iteration is ``forward_pass``, then
-  ``linearize_traj``, then the backward pass, which for nu = 1 runs in the
-  hand-written CUDA kernel (``kernels/riccati.py``) on the card and in that
-  kernel's plain version on the CPU, and in :func:`backward_pass_compat`
-  for nu > 1.
+  ``linearize_traj``, then the backward pass, which for nu = 1 and
+  2 nv <= 32 runs in the hand-written CUDA kernel (``kernels/riccati.py``)
+  on the card and in that kernel's plain version on the CPU, and in
+  :func:`backward_pass_compat` for every other shape.
 * ``tassa`` — modern iLQG: exact cost quadratics by autodiff, adaptive
   Levenberg-Marquardt regularization, and a parallel backtracking
   linesearch (every alpha of the grid rolled out at once as one batch of
@@ -227,10 +227,11 @@ def backward_pass_compat(model: Model, traj: State, lin: LinOut,
 
 
 def backward_compat(model: Model, traj: State, lin: LinOut, cfg: ILQRConfig):
-    """The compat backward pass as the main path runs it: the Riccati
-    kernel for nu = 1 (the reference's only complete env), the general
-    :func:`backward_pass_compat` otherwise."""
-    if model.nu != 1:
+    """The compat backward pass as the main path runs it, chosen by shape:
+    the Riccati kernel's wrapper for nu = 1 and 2 nv <= ``riccati.MAX_N``
+    (the cart-pole; on the CPU the wrapper runs its plain version), the
+    general :func:`backward_pass_compat` for every other shape."""
+    if model.nu != 1 or 2 * model.nv > riccati.MAX_N:
         return backward_pass_compat(model, traj, lin, cfg)
     N = cfg.horizon
     K, k = riccati.backward_compat_batched(

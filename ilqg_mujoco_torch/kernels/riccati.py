@@ -5,11 +5,13 @@ Replaces the TPU kernel
 ``ilqg_mujoco_tpu/experimental/pallas_riccati.py::backward_compat_batched``
 and keeps its signature and return shapes.  The math is the reference's
 compat recursion (reference inc/ilqr.h:133-176) with the gain solve
-written as a scalar division, which nu = 1 allows.  The kernel's source
-states its design and its bound.
+written as a scalar division, which nu = 1 allows.  The kernel takes every
+even n = 2 nv up to ``MAX_N`` (n^2 threads per instance, so n = 32 fills a
+block of 1024); its source states its design and its bound.
 
-On a CUDA tensor the wrapper launches the kernel (or raises); the plain
-version runs only for tensors on the CPU.
+On a CUDA tensor the wrapper launches the kernel or raises, as it does
+for an n the kernel does not take; the plain version, which takes any n,
+runs only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from . import _build
 # launches of the CUDA kernel in this process; nothing else adds to it
 LAUNCHES = 0
 
-SUPPORTED_N = (4,)     # n = 2 nv instantiated in the kernel (the cart-pole)
+MAX_N = 32     # the largest n = 2 nv the kernel takes (every even n up to it)
 
 
 def backward_compat_batched_ref(A, B, gx, gu, diffs, mu):
@@ -117,8 +119,8 @@ def backward_compat_batched(A, B, gx, gu, diffs, mu):
         raise ValueError(f"no kernel for device {A.device}")
     if A.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the kernel takes float32 or float64, not {A.dtype}")
-    if n not in SUPPORTED_N:
-        raise ValueError(f"the kernel is instantiated for n in {SUPPORTED_N},"
+    if n % 2 or not 2 <= n <= MAX_N:
+        raise ValueError(f"the kernel takes even n = 2 nv from 2 to {MAX_N},"
                          f" got n={n}")
     strides = [_batch_stride(name, x) for name, x in
                (("A", A), ("B", B), ("gx", gx), ("gu", gu), ("diffs", diffs))]

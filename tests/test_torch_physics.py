@@ -8,6 +8,7 @@ the bound tests/test_physics_parity.py holds the JAX package to against the
 MuJoCo C core."""
 
 import dataclasses
+import gc
 import pathlib
 
 import jax
@@ -146,3 +147,33 @@ def test_cho_solve_vector_and_matrix():
 def test_non_pd_gives_nan():
     L = linalg.cholesky(-torch.eye(3, dtype=torch.float64))
     assert not bool(torch.isfinite(L).all())
+
+
+def test_dropped_model_serves_nothing_to_the_next():
+    """The JAX package caches a mask by ``id(model)``
+    (ilqg_mujoco_tpu/physics/smooth.py:77-84), so a freed model's id,
+    reused by the next model, can serve that model stale constants.  The
+    port's ``on_device`` cache keys on the model itself: a cart-pole
+    stepped and dropped leaves the hopper loaded after it with its own
+    constants, and its qacc in contact matches the MuJoCo C core at the
+    hopper physics test's qacc tolerance (rtol 1e-9, atol 1e-10)."""
+    mujoco = pytest.importorskip("mujoco")
+    cartpole = tmjcf.load_model(str(ASSET))
+    tfwd.step(cartpole, make_state(cartpole, 1, device="cpu"))
+    del cartpole
+    gc.collect()
+
+    hopper = tmjcf.load_model(
+        str(ROOT / "ilqg_mujoco_torch" / "models" / "assets" / "hopper.xml"))
+    mm = mujoco.MjModel.from_xml_path(str(JAX_ASSETS / "hopper.xml"))
+    md = mujoco.MjData(mm)
+    for _ in range(100):             # settled onto the floor: 2 contacts
+        mujoco.mj_step(mm, md)
+    mujoco.mj_forward(mm, md)
+    assert md.ncon > 0
+    s = make_state(hopper, 1, device="cpu").replace(
+        qpos=torch.tensor(md.qpos[None]), qvel=torch.tensor(md.qvel[None]),
+        ctrl=torch.tensor(md.ctrl[None]))
+    got = tfwd.forward(hopper, s)
+    np.testing.assert_allclose(got.qacc[0].numpy(), md.qacc, rtol=1e-9,
+                               atol=1e-10)

@@ -3,12 +3,15 @@ version and its wrapper on the CPU against the JAX package's scan backward
 pass and its Pallas kernel (interpret mode), and the port's general
 backward pass against an independent numpy oracle.
 
-Inputs are real: the linearization of three cart-pole instances' first
-iLQR iteration, made by the port and handed to both packages as numpy.
-Tolerances are those of tests/test_pallas_riccati.py (rtol 1e-9,
-atol 1e-11): the recursions are the same math in float64, in another
-order.  The test marked ``cuda`` compares the kernel with its plain version
-on the card and skips elsewhere; on the card, where JAX may be missing,
+Inputs are real where a model has them: the linearization of three
+cart-pole instances' first iLQR iteration, made by the port and handed to
+both packages as numpy.  Other n = 2 nv, for which no nu=1 model exists,
+take seeded numpy inputs (A = I + 0.05 randn, |r| >= 0.1).  Tolerances are
+those of tests/test_pallas_riccati.py (rtol 1e-9, atol 1e-11): the
+recursions are the same math in float64, in another order.  The test
+marked ``cuda`` compares the kernel with its plain version on the card,
+for every n chip_smoke.py sweeps, and skips elsewhere; on the card, where
+JAX may be missing,
 
     python -m pytest tests/test_torch_riccati.py -m cuda --noconftest
 
@@ -96,6 +99,71 @@ def test_cpu_wrapper_matches_pallas_kernel_ragged_batch(problem):
     K, k = riccati.backward_compat_batched(*a5, env.ilqr.mu)
     np.testing.assert_allclose(K.numpy(), np.asarray(Kp), **TOL)
     np.testing.assert_allclose(k.numpy(), np.asarray(kp), **TOL)
+
+
+def _random_args(Bt, N, n, seed):
+    """Seeded numpy inputs of the kernel's shapes at any n."""
+    rng = np.random.default_rng(seed)
+    A = np.eye(n) + 0.05 * rng.standard_normal((Bt, N, n, n))
+    B = 0.1 * rng.standard_normal((Bt, N, n, 1))
+    gx = rng.standard_normal((Bt, N + 1, n))
+    r = rng.standard_normal((Bt, N, 1))
+    gu = np.sign(r) * (0.1 + np.abs(r))
+    diffs = 0.01 * rng.standard_normal((Bt, N, n))
+    return A, B, gx, gu, diffs
+
+
+@pytest.mark.parametrize("n", [2, 6])
+def test_plain_version_matches_pallas_kernel_at_n(n):
+    """n other than the cart-pole's 4: the Pallas kernel (interpret mode)
+    and the plain version on the same seeded inputs, Bt=5, N=6."""
+    import jax.numpy as jnp
+
+    from ilqg_mujoco_tpu.experimental.pallas_riccati import (
+        backward_compat_batched as pallas_backward)
+
+    args = _random_args(5, 6, n, seed=n)
+    Kp, kp = pallas_backward(*(jnp.asarray(x) for x in args), 1000.0,
+                             interpret=True)
+    K, k = riccati.backward_compat_batched_ref(
+        *(torch.tensor(x) for x in args), 1000.0)
+    assert K.shape == (5, 6, 1, n)
+    np.testing.assert_allclose(K.numpy(), np.asarray(Kp), **TOL)
+    np.testing.assert_allclose(k.numpy(), np.asarray(kp), **TOL)
+
+
+@pytest.mark.parametrize("nv", [riccati.MAX_N // 2, riccati.MAX_N // 2 + 1])
+def test_backward_compat_chooses_by_shape(problem, monkeypatch, nv):
+    """A nu=1 problem with 2 nv at MAX_N goes through the kernel's wrapper,
+    one above it through the general recursion; both give its gains."""
+    env, traj, lin, _ = problem
+    N, n, Bsz = 6, 2 * nv, 2
+    A, B, gx, gu, _ = _random_args(Bsz, N + 1, n, seed=nv)
+    rng = np.random.default_rng(nv + 100)
+    qpos = 0.1 * rng.standard_normal((Bsz, N + 1, nv))
+    qvel = 0.1 * rng.standard_normal((Bsz, N + 1, nv))
+    t = traj.map(lambda x: x[:Bsz, :N + 1]).replace(
+        qpos=torch.tensor(qpos), qvel=torch.tensor(qvel))
+    lin2 = lin._replace(A=torch.tensor(A), B=torch.tensor(B),
+                        gx=torch.tensor(gx[:, :N + 1]), gu=torch.tensor(gu))
+    cfg2 = type(env.ilqr)(horizon=N, mu=env.ilqr.mu)
+    model2 = dataclasses.replace(env.model, nq=nv, nv=nv, nu=1)
+
+    calls = []
+    wrapper = riccati.backward_compat_batched
+    monkeypatch.setattr(riccati, "backward_compat_batched",
+                        lambda *a: calls.append(a) or wrapper(*a))
+    K1, k1 = ilqr.backward_compat(model2, t, lin2, cfg2)
+    assert len(calls) == (1 if n <= riccati.MAX_N else 0)
+    K2, k2 = ilqr.backward_pass_compat(model2, t, lin2, cfg2)
+    Kr, kr = riccati.backward_compat_batched_ref(
+        lin2.A[:, :N], lin2.B[:, :N], lin2.gx, lin2.gu[:, :N],
+        ilqr.knot_gaps(model2, t), cfg2.mu)
+    assert K1.shape == (Bsz, N + 1, 1, n)
+    for K, k in ((K2, k2), (torch.cat([Kr, torch.zeros_like(Kr[:, :1])], 1),
+                            torch.cat([kr, torch.zeros_like(kr[:, :1])], 1))):
+        np.testing.assert_allclose(K1.numpy(), K.numpy(), **TOL)
+        np.testing.assert_allclose(k1.numpy(), k.numpy(), **TOL)
 
 
 def _numpy_backward_compat(A, B, gx, gu, diffs, mu, N):
@@ -186,23 +254,35 @@ def test_wrapper_rejects_bad_inputs(problem):
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(problem):
     """The CUDA kernel against its plain version on the card, in float64
-    (rtol 1e-9, atol 1e-11) and float32, at ragged batch sizes.  float32:
-    rtol 1e-4, atol 1e-6 * max|ref|, since 20 steps of the recursion with
-    mu=1000 lose about three of float32's seven digits to cancellation."""
+    (rtol 1e-9, atol 1e-11) and float32, on the cart-pole's inputs at
+    ragged batch sizes and on seeded inputs for every even n up to
+    MAX_N.  float32: rtol 1e-4, atol 1e-6 max|ref| max(1, n/8), since 20
+    steps of the recursion with mu=1000 lose about three of float32's seven
+    digits to cancellation and a step's sums grow with n.  A CUDA tensor
+    with an n the kernel does not take raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     env, _, _, args = problem
-    for Bt in (5, 131, 4097):
-        idx = torch.arange(Bt) % 3
+    mu = env.ilqr.mu
+    cases = [[x[torch.arange(Bt) % 3] for x in args] for Bt in (5, 131, 4097)]
+    cases += [[torch.tensor(x) for x in _random_args(Bt, 20, n, seed=n)]
+              for n in range(2, riccati.MAX_N + 1, 2) for Bt in (5, 257)]
+    for case in cases:
+        n = case[1].shape[2]
         for dt in (torch.float64, torch.float32):
-            a = [x[idx].to("cuda", dt) for x in args]
+            a = [x.to("cuda", dt) for x in case]
             before = riccati.LAUNCHES
-            K, k = riccati.backward_compat_batched(*a, env.ilqr.mu)
+            K, k = riccati.backward_compat_batched(*a, mu)
             torch.cuda.synchronize()
             assert riccati.LAUNCHES == before + 1
-            Kr, kr = riccati.backward_compat_batched_ref(*a, env.ilqr.mu)
+            Kr, kr = riccati.backward_compat_batched_ref(*a, mu)
             for got, ref in ((K, Kr), (k, kr)):
                 tol = TOL if dt == torch.float64 else dict(
-                    rtol=1e-4, atol=1e-6 * float(ref.abs().max()))
+                    rtol=1e-4,
+                    atol=1e-6 * float(ref.abs().max()) * max(1.0, n / 8))
                 np.testing.assert_allclose(got.cpu().numpy(),
                                            ref.cpu().numpy(), **tol)
+    for n in (3, riccati.MAX_N + 2):
+        a = [torch.tensor(x, device="cuda") for x in _random_args(5, 4, n, 0)]
+        with pytest.raises(ValueError, match="even n"):
+            riccati.backward_compat_batched(*a, mu)
