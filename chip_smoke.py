@@ -29,7 +29,7 @@ Phases, each of which raises on failure:
    every iteration and match the main path's trace, controls, gains and
    mu;
 7. hopper tassa+ad: the batched hopper iLQG solve (N=40, 10 iterations)
-   and 2 closed-loop MPC frames at B=1024 in float64 through the same
+   and 1 closed-loop MPC frame at B=1024 in float64 through the same
    entry points, with contacts and the Euler integrator.  Every trace must
    be finite and monotone, and the mean cost must fall; the solve is
    timed, one iteration split, its CUDA kernels counted and the peak
@@ -47,7 +47,20 @@ Phases, each of which raises on failure:
    path launches a
    hand-written kernel: the hopper has nu = 3 and the Riccati kernel
    takes nu = 1;
-9. kernels: each CUDA kernel against its plain PyTorch version on the
+9. tumbler tassa+ad: the batched tumbler iLQG solve (a free joint and 2
+   hinges, quaternion states: nq 9, nv 8, nu 2; N=20, 8 iterations) and 1
+   MPC frame at B=1024, checked and reported as the hopper's tassa path,
+   with instances 0..7 iterated on the card and on the CPU;
+10. humanoid tassa+ad: the full humanoid (nq 28, nv 27, nu 21, 161 contact
+   pairs, 424 constraint rows per state; N=30, 5 iterations, value
+   scaling, reg_init 1e-2) at B=16 and 1 MPC frame, the same checks with
+   instances 0..1 on the CPU, the share of one rollout step spent in
+   ``collide``, and a second solve that must repeat the first bit for bit.
+   Neither new path launches the Riccati kernel (nu = 2 and 21);
+11. determinism: at B=16 two cart-pole compat solves (trace, trajectory,
+   K, k) and two hopper contact steps after 300 steps from rest (qpos,
+   qvel, qacc) must be bitwise equal;
+12. kernels: each CUDA kernel against its plain PyTorch version on the
    card at the main path's shapes (and ragged batches), in float64 and
    float32.  The Riccati kernel is also held to its plain version on
    seeded inputs for every even n up to riccati.MAX_N at Bt in (5, 257),
@@ -60,6 +73,12 @@ Phases, each of which raises on failure:
    memory/compute bound and the plain version's time.  The build phase
    gates the compiler's report: no spills in the float64 kernel at n = 4
    and 8.
+
+Between paths the solver's cache of captured CG graphs is cleared
+(``solver.clear_graphs``), with the memory allocated and reserved printed
+before and after, and each path prints how many distinct graph shapes it
+captured against the cache's bound.  The wall time is printed after every
+phase.
 
 The last line of standard output is the JSON device record; the line
 before it names the card and its power limit.  TF32 is switched off for
@@ -87,15 +106,21 @@ from ilqg_mujoco_torch.kernels import _build, riccati  # noqa: E402
 from ilqg_mujoco_torch.models import envs  # noqa: E402
 from ilqg_mujoco_torch.ops.linearize import linearize_traj  # noqa: E402
 from ilqg_mujoco_torch.parallel import batch  # noqa: E402
+from ilqg_mujoco_torch.physics import collision, smooth, solver  # noqa: E402
+from ilqg_mujoco_torch.physics import forward as fwd  # noqa: E402
+from ilqg_mujoco_torch.physics.model import make_state  # noqa: E402
 
 B = 4096        # the pendulum's batch in bench.py
 HOPPER_B = 1024  # the hopper's batch in bench.py
+TUMBLER_B = 1024  # the tumbler's batch in bench.py
+HUMANOID_B = 16  # the humanoid's batch in bench.py
+DETERMINISM_B = 16
 SEED = 0
-FRAMES = 1
-TASSA_FRAMES = 1
-HOPPER_TASSA_FRAMES = 2
-HOPPER_COMPAT_FRAMES = 1
+FRAMES = 1       # closed-loop MPC frames after each path's solve
 CHECK_B = 8
+# the humanoid's CPU check: the CPU's ad pass carries a per-lane J of
+# 424 x 27 float64 over every instance's 31 x 75 lanes
+HUMANOID_CHECK_B = 2
 # card against CPU: {name: (rtol, atol, atol as a share of the largest
 # |value|)}
 CARTPOLE_TASSA_TOLS = dict(trace=(1e-9, 0.0, 0.0), ctrl=(1e-6, 1e-9, 0.0),
@@ -258,17 +283,19 @@ def phase_main_path(env, B, seed, device):
 
 def count_cuda_kernels(fn):
     """CUDA kernels that ``fn`` launches, by the profiler: (count, summed
-    kernel ms), or None when the profiler records no device events."""
+    kernel ms), or None when the profiler records no device events.  Only
+    device activity is recorded, and the raw Kineto events are read
+    directly: building the profiler's event tree for the ~600,000 kernels
+    of a hopper or humanoid iteration took minutes."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
     if not kern:
         return None
-    return len(kern), sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    return len(kern), sum(kern) / 1e6
 
 
 def print_kernel_count(fn):
@@ -362,25 +389,29 @@ def tassa_iteration(env, x0, sol, times=None):
     return new, cost, sel, margin
 
 
-def phase_tassa(env, label, B, seed, device, frames):
+def phase_tassa(env, label, B, seed, device):
     """Drive a tassa path at B through the user's entry points; returns
     what the cross-device check needs."""
     gen = torch.Generator().manual_seed(seed)
     solve = batch.make_batched_solve(env)
     mpc_step = batch.make_batched_mpc_step(env)
     torch.cuda.reset_peak_memory_stats()
-    riccati.LAUNCHES = 0
+    before = riccati.LAUNCHES
     (states, sols), t_init = sync_time(lambda: batch.init_batched(
         env, B, qpos_noise=0.01, generator=gen, device=device,
         dtype=torch.float64))
     (sol, trace), t_solve = sync_time(lambda: solve(states, sols))
     s, so, frame_costs, t_frames = states, sol, [], []
-    for _ in range(frames):
+    for _ in range(FRAMES):
         (s, so, c), dt = sync_time(lambda: mpc_step(s, so))
         frame_costs.append(c)
         t_frames.append(dt)
-    launches = riccati.LAUNCHES
+    launches = riccati.LAUNCHES - before
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches:
+        raise AssertionError(f"the Riccati kernel launched {launches} times "
+                             f"on the {label} path (tassa has its own "
+                             "recursion)")
 
     costs = torch.cat([trace.flatten()] + frame_costs)
     if not bool(torch.isfinite(costs).all()):
@@ -403,8 +434,7 @@ def phase_tassa(env, label, B, seed, device, frames):
           f"(float64, B={B}); mean cost {c0:.6f} (initial rollout) -> "
           f"{c1:.6f}; largest trace step {rise:.3e}; mu in "
           f"[{float(sol.mu.min()):.3e}, {float(sol.mu.max()):.3e}]; "
-          f"hand-written kernel launches {launches}; peak memory "
-          f"{peak:.2f} GiB")
+          f"Riccati kernel launches {launches}; peak memory {peak:.2f} GiB")
 
     times = {}
     tassa_iteration(env, states, sols, times)
@@ -418,16 +448,16 @@ def phase_tassa(env, label, B, seed, device, frames):
                 trace=trace)
 
 
-def phase_tassa_cross_device(tassa, tols):
-    """Instances 0..7 solved iteration by iteration on the card and on the
-    CPU: the same alpha at every iteration, and the main path's numbers
-    within ``tols``: {name: (rtol, atol, atol as a share of the largest
-    |value|)}."""
+def phase_tassa_cross_device(tassa, tols, check_b=CHECK_B):
+    """Instances 0..check_b-1 solved iteration by iteration on the card
+    and on the CPU: the same alpha at every iteration, and the main path's
+    numbers within ``tols``: {name: (rtol, atol, atol as a share of the
+    largest |value|)}."""
     env, iters = tassa["env"], tassa["env"].ilqr.iterations
     label = tassa["label"]
     runs = {}
-    for where, move in (("card", lambda x: x[:CHECK_B]),
-                        ("cpu", lambda x: x[:CHECK_B].cpu())):
+    for where, move in (("card", lambda x: x[:check_b]),
+                        ("cpu", lambda x: x[:check_b].cpu())):
         s0 = tassa["sols"]
         x0 = tassa["states"].map(move)
         sol = ilqr.ILQRState(s0.traj.map(move), move(s0.K), move(s0.k),
@@ -456,16 +486,17 @@ def phase_tassa_cross_device(tassa, tols):
         return check_close(f"{label} {name}", got, want, rtol, atol)
 
     errs = [
-        close("trace (card 8 vs B)", card["trace"], tassa["trace"][:CHECK_B]),
-        close("trace", tassa["trace"][:CHECK_B], cpu["trace"]),
-        close("ctrl", sol.traj.ctrl[:CHECK_B], cpu["sol"].traj.ctrl),
-        close("K", sol.K[:CHECK_B], cpu["sol"].K),
-        close("k", sol.k[:CHECK_B], cpu["sol"].k),
-        close("mu", sol.mu[:CHECK_B], cpu["sol"].mu)]
-    print(f"{label} cross-device: instances 0..{CHECK_B - 1} iterated on the "
+        close(f"trace (card {check_b} vs B)", card["trace"],
+              tassa["trace"][:check_b]),
+        close("trace", tassa["trace"][:check_b], cpu["trace"]),
+        close("ctrl", sol.traj.ctrl[:check_b], cpu["sol"].traj.ctrl),
+        close("K", sol.K[:check_b], cpu["sol"].K),
+        close("k", sol.k[:check_b], cpu["sol"].k),
+        close("mu", sol.mu[:check_b], cpu["sol"].mu)]
+    print(f"{label} cross-device: instances 0..{check_b - 1} iterated on the "
           f"card ({card['seconds']:.1f} s) and on the CPU "
           f"({cpu['seconds']:.1f} s) select the same alphas; max abs err "
-          "trace(card 8 vs B)/trace/ctrl/K/k/mu "
+          f"trace(card {check_b} vs B)/trace/ctrl/K/k/mu "
           + " ".join(f"{e:.2e}" for e in errs))
     print(f"{label} selected alpha index per iteration (rows: instances; "
           "0 = alpha 0 rebase, i = alphas[i-1]):")
@@ -473,6 +504,110 @@ def phase_tassa_cross_device(tassa, tols):
         print("  " + " ".join(f"{x:2d}" for x in row))
     print(f"{label} smallest decision margin (relative): "
           f"{float(card['margin'].min()):.3e}")
+
+
+def clear_graph_cache(label):
+    """Report the graph cache of the path just run, then clear it: the
+    distinct shapes the path captured, the captures (more than the shapes
+    when the LRU evicted one), and the memory allocated and reserved
+    before and after the clear."""
+    g = solver._GRAPHS
+    gib = 2 ** 30
+    before = (torch.cuda.memory_allocated() / gib,
+              torch.cuda.memory_reserved() / gib)
+    keys, captures, held = len(g.keys), g.captures, len(g.steps)
+    solver.clear_graphs()
+    after = (torch.cuda.memory_allocated() / gib,
+             torch.cuda.memory_reserved() / gib)
+    print(f"{label}: {keys} distinct CG graph shapes, {captures} captures, "
+          f"{held} held at the end (bound {g.size}); clear_graphs: memory "
+          f"allocated {before[0]:.2f} -> {after[0]:.2f} GiB, reserved "
+          f"{before[1]:.2f} -> {after[1]:.2f} GiB")
+
+
+def collide_share(env, tassa):
+    """The share of one rollout step spent in ``collide``: one physics
+    step of the linesearch's (len(alphas)+1) x B instances at the first
+    knot after the start, against ``collide`` alone on the same geom
+    frames, each the median of 5 synchronised calls."""
+    m = env.model
+    na = len(env.ilqr.alphas) + 1
+    x = tassa["sols"].traj.map(
+        lambda a: a[:, 1].repeat((na,) + (1,) * (a.dim() - 2)))
+    kin = smooth.kinematics(m, x.qpos)
+
+    def median(fn):
+        fn()
+        return statistics.median(sync_time(fn)[1] for _ in range(5))
+
+    t_step = median(lambda: fwd.step(m, x))
+    t_col = median(lambda: collision.collide(m, kin.geom_xpos,
+                                             kin.geom_xmat))
+    print(f"{tassa['label']}: one rollout step of {x.qpos.shape[0]} "
+          f"instances {t_step * 1e3:.2f} ms, collide ({len(m.pair_geom1)} "
+          f"pairs) {t_col * 1e3:.2f} ms: {100 * t_col / t_step:.1f}% of "
+          "the step")
+
+
+def same_solves(what, one, two):
+    """Raise unless two solves, (solver state, trace) each, have the same
+    bits in trace, trajectory, K and k."""
+    (s1, t1), (s2, t2) = one, two
+    for name, a, b in (("trace", t1, t2), ("qpos", s1.traj.qpos,
+                                           s2.traj.qpos),
+                       ("ctrl", s1.traj.ctrl, s2.traj.ctrl),
+                       ("K", s1.K, s2.K), ("k", s1.k, s2.k)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} differ in {name}")
+
+
+def check_solve_repeats(env, tassa):
+    """The path's solve run again on the same inputs must give the same
+    bits: trace, trajectory, K and k."""
+    (sol, trace), dt = sync_time(lambda: batch.make_batched_solve(env)(
+        tassa["states"], tassa["sols"]))
+    same_solves(f"{tassa['label']}: two solves", (sol, trace),
+                (tassa["sol"], tassa["trace"]))
+    print(f"{tassa['label']}: a second solve at B={trace.shape[0]} "
+          f"({dt:.1f} s) repeats the first bit for bit (trace, qpos, ctrl, "
+          "K, k)")
+
+
+def phase_humanoid(B, seed, device):
+    """The full humanoid's tassa+ad path at B, its checks against the CPU
+    on instances 0..1, the share of a rollout step in ``collide``, and a
+    second solve that must repeat the first."""
+    env = envs.make("humanoid")
+    tassa = phase_tassa(env, "humanoid", B, seed, device)
+    collide_share(env, tassa)
+    check_solve_repeats(env, tassa)
+    phase_tassa_cross_device(tassa, HOPPER_TASSA_TOLS, HUMANOID_CHECK_B)
+
+
+def phase_determinism(B, seed, device):
+    """At B: two cart-pole compat solves from the same start, and two
+    hopper contact steps from the same state 300 steps after rest, must be
+    bitwise equal (the card's counterpart of
+    tests/test_torch_determinism.py)."""
+    env = envs.pendulum("compat", "fd")
+    gen = torch.Generator().manual_seed(seed)
+    states, sols = batch.init_batched(env, B, qpos_noise=0.01, generator=gen,
+                                      device=device, dtype=torch.float64)
+    solve = batch.make_batched_solve(env)
+    first, dt = sync_time(lambda: solve(states, sols))
+    same_solves("two cart-pole compat solves", first, solve(states, sols))
+    m = envs.make("hopper").model
+    s = make_state(m, B, device=device)
+    for _ in range(300):
+        s = fwd.step(m, s)
+    a, b = fwd.step(m, s), fwd.step(m, s)
+    for name in ("qpos", "qvel", "qacc"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"two hopper contact steps differ in "
+                                 f"{name}")
+    print(f"determinism: B={B} two cart-pole compat solves ({dt:.1f} s "
+          "each) and two hopper contact steps after 300 steps are bitwise "
+          "equal")
 
 
 def hopper_compat_env():
@@ -499,7 +634,7 @@ def phase_hopper_compat(B, seed, device):
         lambda: batch.make_batched_solve(env)(states, sols))
     mpc_step = batch.make_batched_mpc_step(env)
     s, so, t_frames, frame_costs = states, sol, [], []
-    for _ in range(HOPPER_COMPAT_FRAMES):
+    for _ in range(FRAMES):
         (s, so, c), dt = sync_time(lambda: mpc_step(s, so))
         t_frames.append(dt)
         frame_costs.append(c)
@@ -756,18 +891,39 @@ def main():
     main_out = phase_main_path(env, B, SEED, "cuda")
     args = phase_split(env, main_out)
     phase_cross_device(env, main_out)
+    clear_graph_cache("cart-pole compat+fd")
     mark("cart-pole tassa+ad")
     phase_tassa_cross_device(
-        phase_tassa(envs.pendulum("tassa", "ad"), "tassa", B, SEED, "cuda",
-                    TASSA_FRAMES), CARTPOLE_TASSA_TOLS)
+        phase_tassa(envs.pendulum("tassa", "ad"), "tassa", B, SEED, "cuda"),
+        CARTPOLE_TASSA_TOLS)
+    clear_graph_cache("cart-pole tassa+ad")
     mark("hopper tassa+ad")
     phase_tassa_cross_device(
         phase_tassa(envs.make("hopper"), "hopper tassa", HOPPER_B, SEED,
-                    "cuda", HOPPER_TASSA_FRAMES), HOPPER_TASSA_TOLS)
+                    "cuda"), HOPPER_TASSA_TOLS)
+    clear_graph_cache("hopper tassa+ad")
     mark("hopper compat+fd")
     phase_hopper_compat(HOPPER_B, SEED, "cuda")
+    clear_graph_cache("hopper compat+fd")
+    mark("tumbler tassa+ad")
+    riccati.LAUNCHES = 0
+    phase_tassa_cross_device(
+        phase_tassa(envs.make("tumbler"), "tumbler", TUMBLER_B, SEED, "cuda"),
+        HOPPER_TASSA_TOLS)
+    clear_graph_cache("tumbler tassa+ad")
+    mark("humanoid tassa+ad")
+    phase_humanoid(HUMANOID_B, SEED, "cuda")
+    if riccati.LAUNCHES:
+        raise AssertionError(f"the Riccati kernel launched {riccati.LAUNCHES}"
+                             " times during the tumbler and humanoid phases")
+    print("tumbler and humanoid phases: 0 Riccati kernel launches")
+    clear_graph_cache("humanoid tassa+ad")
+    mark("determinism")
+    phase_determinism(DETERMINISM_B, SEED, "cuda")
+    clear_graph_cache("determinism")
     mark("kernels")
     kernels = phase_kernels(env, args, main_out["launches"], registers)
+    mark("done")
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

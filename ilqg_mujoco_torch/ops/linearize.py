@@ -45,8 +45,8 @@ import torch.autograd.forward_ad as fwAD
 
 from ..physics import collision
 from ..physics import forward as fwd
-from ..physics import smooth
-from ..physics.model import JNT_HINGE, JNT_SLIDE, Model, State
+from ..physics import smooth, spatial
+from ..physics.model import JNT_FREE, JNT_HINGE, JNT_SLIDE, Model, State
 
 # cost(qpos, qvel, ctrl) -> (...): the stepCostFn_t contract
 # (reference inc/mjderivative.h:5) on batched tensors
@@ -93,15 +93,28 @@ class LinOut(NamedTuple):
 
 
 def _perturb_qpos(model: Model, qpos: torch.Tensor, dof: int, eps):
-    """qpos perturbed along tangent direction ``dof`` (slide/hinge: one
-    coordinate)."""
+    """qpos perturbed along tangent direction ``dof``: one coordinate of a
+    slide, hinge or free-joint translation; a ball or free-joint rotation
+    moves the quaternion by ``quat_integrate`` (the reference's ball/free
+    handling, src/mjderivative.cpp:148-171)."""
     j = int(model.dof_jntid[dof])
     jt = int(model.jnt_type[j])
-    if jt not in (JNT_SLIDE, JNT_HINGE):
-        raise smooth.unported_joint(jt)
     qadr = int(model.jnt_qposadr[j])
+    k = dof - int(model.jnt_dofadr[j])
     cols = list(qpos.unbind(-1))
-    cols[qadr] = cols[qadr] + eps
+    if jt == JNT_FREE:
+        if k < 3:
+            jt = JNT_SLIDE
+            qadr += k
+        else:
+            qadr, k = qadr + 3, k - 3
+    if jt in (JNT_SLIDE, JNT_HINGE):
+        cols[qadr] = cols[qadr] + eps
+        return torch.stack(cols, -1)
+    vel = qpos.new_zeros(3)
+    vel[k] = eps
+    q = spatial.quat_integrate(qpos[..., qadr:qadr + 4], vel, 1.0)
+    cols[qadr:qadr + 4] = q.unbind(-1)
     return torch.stack(cols, -1)
 
 
@@ -290,13 +303,24 @@ def linearize_ad(model: Model, state: State, cost_fn: CostFn,
 
 
 def _qpos_diff(model: Model, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Tangent-space configuration difference a ominus b in R^{nv} (slide
-    and hinge joints: plain subtraction)."""
-    if model.nq != model.nv:
-        jt = next(int(t) for t in model.jnt_type
-                  if int(t) not in (JNT_SLIDE, JNT_HINGE))
-        raise smooth.unported_joint(jt)
-    return a - b
+    """Tangent-space configuration difference a ominus b in R^{nv}: plain
+    subtraction of slide, hinge and free-joint translation coordinates, the
+    quaternion log map (``quat_sub``) for ball and free-joint rotations."""
+    if model.nq == model.nv:
+        return a - b
+    parts = []
+    for j in range(model.njnt):
+        jt = int(model.jnt_type[j])
+        qadr = int(model.jnt_qposadr[j])
+        if jt in (JNT_SLIDE, JNT_HINGE):
+            parts.append(a[..., qadr:qadr + 1] - b[..., qadr:qadr + 1])
+            continue
+        if jt == JNT_FREE:
+            parts.append(a[..., qadr:qadr + 3] - b[..., qadr:qadr + 3])
+            qadr += 3
+        parts.append(spatial.quat_sub(a[..., qadr:qadr + 4],
+                                      b[..., qadr:qadr + 4]))
+    return torch.cat(parts, -1)
 
 
 def linearize_exact(model: Model, state: State, cost_fn: CostFn,

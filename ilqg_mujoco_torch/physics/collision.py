@@ -7,10 +7,11 @@ contributes a fixed number of contact slots, so the contact tensors have
 static shapes.  An inactive slot is masked with a large ``dist`` (and is
 then excluded by the constraint rows' ``dist < margin - gap`` test).
 
-The narrow phase loops over the static pairs in Python; every slot's
-tensors carry the leading batch dims of the geom frames.  The per-slot
-metadata (bodies, condim, friction, solref, solimp, margin, gap) is static:
-:func:`slot_meta` gives it as numpy arrays in slot order.
+The narrow phase runs once per geom-type pair, vectorised over all the
+pairs of that type (the humanoid's 161 pairs are 5 such groups); every
+slot's tensors carry the leading batch dims of the geom frames.  The
+per-slot metadata (bodies, condim, friction, solref, solimp, margin, gap)
+is static: :func:`slot_meta` gives it as numpy arrays in slot order.
 
 Contact frame rows are [normal; tangent1; tangent2]; the normal points from
 geom1 into geom2 (MuJoCo convention).
@@ -18,6 +19,7 @@ geom1 into geom2 (MuJoCo convention).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -91,10 +93,6 @@ def _norm(x):
     return torch.sqrt((x * x).sum(-1))
 
 
-def _unit_vectors(model: Model, device, dtype) -> torch.Tensor:
-    return torch.eye(3, dtype=dtype, device=device)
-
-
 def _make_tangents(n, eye):
     """MuJoCo mju_makeFrame tangents: t1 = normalize(n x e_k) with
     k = argmin |n_k| (ties -> lowest index), t2 = n x t1.  The exact
@@ -125,14 +123,14 @@ def _axis_tangents(n, axis, eye):
     return t1, t2
 
 
-def _plane_sphere(ppos, pmat, c, r: float):
+def _plane_sphere(ppos, pmat, c, r):
     n = pmat[..., :, 2]
     dist = _dot(n, c - ppos) - r
     pos = c - n * (r + 0.5 * dist)[..., None]
     return dist, pos, n
 
 
-def _seg_seg_closest(p1, d1, hl1: float, p2, d2, hl2: float):
+def _seg_seg_closest(p1, d1, hl1, p2, d2, hl2):
     """Closest points between the segments p ± hl d (d unit)."""
     r = p1 - p2
     b = _dot(d1, d2)
@@ -147,7 +145,7 @@ def _seg_seg_closest(p1, d1, hl1: float, p2, d2, hl2: float):
     return p1 + s[..., None] * d1, p2 + t[..., None] * d2
 
 
-def _sphere_sphere(c1, r1: float, c2, r2: float, eye):
+def _sphere_sphere(c1, r1, c2, r2, eye):
     d = c2 - c1
     ok = (d * d).sum(-1) > 1e-24
     dsafe = torch.where(ok[..., None], d, eye[2])
@@ -158,93 +156,130 @@ def _sphere_sphere(c1, r1: float, c2, r2: float, eye):
     return dist, pos, n
 
 
-def collide(model: Model, geom_xpos: torch.Tensor,
-            geom_xmat: torch.Tensor) -> Contacts:
-    """Evaluate every static candidate pair for a batch of geom frames
-    ``geom_xpos`` (..., ngeom, 3), ``geom_xmat`` (..., ngeom, 3, 3)."""
-    dt, dev = geom_xpos.dtype, geom_xpos.device
-    batch = geom_xpos.shape[:-2]
-    eye = on_device(model, dev, dt, _unit_vectors)
-    dists, poss, frames = [], [], []
+def _pair_groups(model: Model, device, dtype) -> SimpleNamespace:
+    """The static pairs grouped by geom-type pair, in the order each type
+    first appears: per group its geom ids and sizes, and ``order``, the
+    position of every slot of :func:`slot_meta`'s order in the groups'
+    concatenated output."""
+    groups, slot = {}, 0
+    for g1, g2 in zip(model.pair_geom1, model.pair_geom2):
+        g1, g2 = int(g1), int(g2)
+        kind = _pair_types(model, g1, g2)
+        g = groups.setdefault(kind, dict(g1=[], g2=[], slots=[]))
+        g["g1"].append(g1)
+        g["g2"].append(g2)
+        g["slots"].append(range(slot, slot + _NSLOT[kind]))
+        slot += _NSLOT[kind]
+    # group outputs are pair-major within a group; slot i of the model
+    # comes from position order[i] of their concatenation
+    flat = [i for g in groups.values() for r in g["slots"] for i in r]
+    order = np.empty(len(flat), np.int64)
+    order[flat] = np.arange(len(flat))
+    idx = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    size = lambda g: torch.as_tensor(model.geom_size[g], dtype=dtype,
+                                     device=device)
+    return SimpleNamespace(
+        eye=torch.eye(3, dtype=dtype, device=device), order=idx(order),
+        groups=[SimpleNamespace(kind=k, g1=idx(g["g1"]), g2=idx(g["g2"]),
+                                s1=size(g["g1"]), s2=size(g["g2"]))
+                for k, g in groups.items()])
+
+
+def _narrow_phase(kind, p1, R1, p2, R2, s1, s2, eye):
+    """Every slot of a group of pairs of one geom-type pair ``kind``: geom
+    frames (..., G, 3) and (..., G, 3, 3), sizes (G, 3).  Returns (dist,
+    pos, frame) with a slot dim after the pair dim, (..., G, nslot, ...)."""
+    dt = p1.dtype
+    slots = []
 
     def add(dist, pos, n, axis=None):
         t1, t2 = (_make_tangents(n, eye) if axis is None
                   else _axis_tangents(n, axis, eye))
-        dists.append(dist)
-        poss.append(pos)
-        frames.append(torch.stack([n, t1, t2], -2))
+        slots.append((dist, pos, torch.stack([n, t1, t2], -2)))
 
-    for g1, g2 in zip(model.pair_geom1, model.pair_geom2):
-        g1, g2 = int(g1), int(g2)
-        types = _pair_types(model, g1, g2)
-        p1, R1 = geom_xpos[..., g1, :], geom_xmat[..., g1, :, :]
-        p2, R2 = geom_xpos[..., g2, :], geom_xmat[..., g2, :, :]
-        s1 = [float(x) for x in model.geom_size[g1]]
-        s2 = [float(x) for x in model.geom_size[g2]]
-        if types == (GEOM_PLANE, GEOM_SPHERE):
-            add(*_plane_sphere(p1, R1, p2, s2[0]))
-        elif types == (GEOM_PLANE, GEOM_CAPSULE):
-            axis = R2[..., :, 2]
-            for sgn in (1.0, -1.0):
-                c = p2 + (sgn * s2[1]) * axis
-                add(*_plane_sphere(p1, R1, c, s2[0]), axis=axis)
-        elif types == (GEOM_PLANE, GEOM_BOX):
-            # one slot per box corner, in MuJoCo's corner bit order
-            # (mjc_PlaneBox).  MuJoCo keeps at most 4 contacts per pair; a
-            # rigid box penetrating a plane short of half its depth has at
-            # most 4 corners below it, so the masked 8-slot form behaves
-            # the same
-            n = R1[..., :, 2]
-            hx, hy, hz = s2
-            loc = torch.tensor([[hx if i & 1 else -hx, hy if i & 2 else -hy,
-                                 hz if i & 4 else -hz] for i in range(8)],
-                               dtype=dt, device=dev)
-            corners = p2[..., None, :] + (R2[..., None, :, :]
-                                          @ loc[..., None]).squeeze(-1)
-            for corner in corners.unbind(-2):
-                d = _dot(n, corner - p1)
-                add(d, corner - n * (0.5 * d)[..., None], n)
-        elif types == (GEOM_SPHERE, GEOM_SPHERE):
-            add(*_sphere_sphere(p1, s1[0], p2, s2[0], eye))
-        elif types == (GEOM_SPHERE, GEOM_CAPSULE):
-            axis = R2[..., :, 2]
-            t = torch.clamp(_dot(p1 - p2, axis), -s2[1], s2[1])
-            add(*_sphere_sphere(p1, s1[0], p2 + t[..., None] * axis, s2[0],
-                                eye))
-        else:
-            # capsule-capsule: two slots.  MuJoCo emits two contacts when
-            # the axes are (numerically) parallel, at the ends of the axial
-            # overlap, and one closest-point contact otherwise
-            # (mjc_CapsuleCapsule); slot 2 is masked unless parallel
-            a1, a2 = R1[..., :, 2], R2[..., :, 2]
-            (r1, hl1), (r2, hl2) = s1[:2], s2[:2]
-            b = _dot(a1, a2)
-            # MuJoCo's test is 1 - b^2 < 1e-15 for unit axes, widened per
-            # dtype so that rotation round-off of parallel axes passes it
-            tol = 1e-12 if dt == torch.float64 else 1e-6
-            par = ((1.0 - b * b) < tol)[..., None]
-            cg1, cg2 = _seg_seg_closest(p1, a1, hl1, p2, a2, hl2)
-            # overlap of segment 2 projected onto segment 1's axis
-            proj = _dot(p2 - p1, a1)
-            half = b.abs() * hl2
-            for slot, sp in enumerate((torch.clamp(proj - half, -hl1, hl1),
-                                       torch.clamp(proj + half, -hl1, hl1))):
-                cp1 = p1 + sp[..., None] * a1
-                cp2 = p2 + torch.clamp(_dot(cp1 - p2, a2), -hl2,
-                                       hl2)[..., None] * a2
-                d, pos, n = _sphere_sphere(torch.where(par, cp1, cg1), r1,
-                                           torch.where(par, cp2, cg2), r2,
-                                           eye)
-                if slot == 1:
-                    d = torch.where(par[..., 0], d, _BIG)
-                add(d, pos, n)
+    if kind == (GEOM_PLANE, GEOM_SPHERE):
+        add(*_plane_sphere(p1, R1, p2, s2[:, 0]))
+    elif kind == (GEOM_PLANE, GEOM_CAPSULE):
+        axis = R2[..., :, 2]
+        for sgn in (1.0, -1.0):
+            c = p2 + (sgn * s2[:, 1, None]) * axis
+            add(*_plane_sphere(p1, R1, c, s2[:, 0]), axis=axis)
+    elif kind == (GEOM_PLANE, GEOM_BOX):
+        # one slot per box corner, in MuJoCo's corner bit order
+        # (mjc_PlaneBox).  MuJoCo keeps at most 4 contacts per pair; a rigid
+        # box penetrating a plane short of half its depth has at most 4
+        # corners below it, so the masked 8-slot form behaves the same
+        n = R1[..., :, 2]
+        sign = torch.tensor([[1.0 if i & (1 << a) else -1.0 for a in range(3)]
+                             for i in range(8)], dtype=dt, device=s2.device)
+        loc = sign * s2[:, None, :]                          # (G, 8, 3)
+        corners = p2[..., None, :] + (R2[..., None, :, :]
+                                      @ loc[..., None]).squeeze(-1)
+        for corner in corners.unbind(-2):
+            d = _dot(n, corner - p1)
+            add(d, corner - n * (0.5 * d)[..., None], n)
+    elif kind == (GEOM_SPHERE, GEOM_SPHERE):
+        add(*_sphere_sphere(p1, s1[:, 0], p2, s2[:, 0], eye))
+    elif kind == (GEOM_SPHERE, GEOM_CAPSULE):
+        axis = R2[..., :, 2]
+        hl = s2[:, 1]
+        t = torch.clamp(_dot(p1 - p2, axis), -hl, hl)
+        add(*_sphere_sphere(p1, s1[:, 0], p2 + t[..., None] * axis,
+                            s2[:, 0], eye))
+    else:
+        # capsule-capsule: two slots.  MuJoCo emits two contacts when the
+        # axes are (numerically) parallel, at the ends of the axial
+        # overlap, and one closest-point contact otherwise
+        # (mjc_CapsuleCapsule); slot 2 is masked unless parallel
+        a1, a2 = R1[..., :, 2], R2[..., :, 2]
+        r1, hl1, r2, hl2 = s1[:, 0], s1[:, 1], s2[:, 0], s2[:, 1]
+        b = _dot(a1, a2)
+        # MuJoCo's test is 1 - b^2 < 1e-15 for unit axes, widened per dtype
+        # so that rotation round-off of parallel axes passes it
+        tol = 1e-12 if dt == torch.float64 else 1e-6
+        par = ((1.0 - b * b) < tol)[..., None]
+        cg1, cg2 = _seg_seg_closest(p1, a1, hl1, p2, a2, hl2)
+        # overlap of segment 2 projected onto segment 1's axis
+        proj = _dot(p2 - p1, a1)
+        half = b.abs() * hl2
+        for slot, sp in enumerate((torch.clamp(proj - half, -hl1, hl1),
+                                   torch.clamp(proj + half, -hl1, hl1))):
+            cp1 = p1 + sp[..., None] * a1
+            cp2 = p2 + torch.clamp(_dot(cp1 - p2, a2), -hl2,
+                                   hl2)[..., None] * a2
+            d, pos, n = _sphere_sphere(torch.where(par, cp1, cg1), r1,
+                                       torch.where(par, cp2, cg2), r2, eye)
+            if slot == 1:
+                d = torch.where(par[..., 0], d, _BIG)
+            add(d, pos, n)
+    dist, pos, frame = zip(*slots)
+    nd = dist[0].dim()
+    return (torch.stack(dist, nd), torch.stack(pos, nd),
+            torch.stack(frame, nd))
 
-    if not dists:
+
+def collide(model: Model, geom_xpos: torch.Tensor,
+            geom_xmat: torch.Tensor) -> Contacts:
+    """Evaluate every static candidate pair for a batch of geom frames
+    ``geom_xpos`` (..., ngeom, 3), ``geom_xmat`` (..., ngeom, 3, 3).  Each
+    geom-type pair is one vectorised evaluation over all its pairs; the
+    slots come back in :func:`slot_meta`'s order."""
+    batch = geom_xpos.shape[:-2]
+    nd = len(batch)
+    pg = on_device(model, geom_xpos.device, geom_xpos.dtype, _pair_groups)
+    if not pg.groups:
         z = geom_xpos.new_zeros
         return Contacts(z(batch + (0,)), z(batch + (0, 3)),
                         z(batch + (0, 3, 3)))
-    return Contacts(torch.stack(dists, -1), torch.stack(poss, -2),
-                    torch.stack(frames, -3))
+    outs = []
+    for g in pg.groups:
+        slots = _narrow_phase(
+            g.kind, geom_xpos[..., g.g1, :], geom_xmat[..., g.g1, :, :],
+            geom_xpos[..., g.g2, :], geom_xmat[..., g.g2, :, :], g.s1, g.s2,
+            pg.eye)
+        outs.append([x.flatten(nd, nd + 1) for x in slots])
+    return Contacts(*(torch.cat(x, nd).index_select(nd, pg.order)
+                      for x in zip(*outs)))
 
 
 def _combine(model: Model, g1: int, g2: int):

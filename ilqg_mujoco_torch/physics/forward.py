@@ -24,8 +24,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops import linalg
-from . import collision, constraint, smooth, solver
-from .model import INT_RK4, JNT_HINGE, JNT_SLIDE, Model, State, device_arrays
+from . import collision, constraint, smooth, solver, spatial
+from .model import (INT_RK4, JNT_FREE, JNT_HINGE, JNT_SLIDE, Model, State,
+                    device_arrays)
 
 
 class ForwardAux(NamedTuple):
@@ -116,14 +117,23 @@ def forward(model: Model, state: State, iterations: Optional[int] = None,
 
 def integrate_pos(model: Model, qpos: torch.Tensor, qvel: torch.Tensor,
                   h) -> torch.Tensor:
-    """mj_integratePos for slide and hinge joints."""
+    """mj_integratePos: slide and hinge coordinates move along their dof,
+    ball and free-joint quaternions by the quaternion exponential (the map
+    the FD linearizer's tangent perturbations use, mju_quatIntegrate)."""
     cols = list(qpos.unbind(-1))
     for j in range(model.njnt):
         jt = int(model.jnt_type[j])
-        if jt not in (JNT_SLIDE, JNT_HINGE):
-            raise smooth.unported_joint(jt)
         qadr, dadr = int(model.jnt_qposadr[j]), int(model.jnt_dofadr[j])
-        cols[qadr] = cols[qadr] + h * qvel[..., dadr]
+        if jt in (JNT_SLIDE, JNT_HINGE):
+            cols[qadr] = cols[qadr] + h * qvel[..., dadr]
+            continue
+        if jt == JNT_FREE:
+            for i in range(3):
+                cols[qadr + i] = cols[qadr + i] + h * qvel[..., dadr + i]
+            qadr, dadr = qadr + 3, dadr + 3
+        q = spatial.quat_integrate(qpos[..., qadr:qadr + 4],
+                                   qvel[..., dadr:dadr + 3], h)
+        cols[qadr:qadr + 4] = q.unbind(-1)
     return torch.stack(cols, -1)
 
 

@@ -199,6 +199,8 @@ def _upload(model: Model, dev, dtype) -> types.SimpleNamespace:
               for f in _FLOAT_FIELDS}
     arrays["actuator_ctrllimited"] = torch.as_tensor(
         np.asarray(model.actuator_ctrllimited, dtype=bool), device=dev)
+    # the unit motion axes of a free joint's translations
+    arrays["eye6"] = torch.eye(6, dtype=dtype, device=dev)
     # an index on the device: indexing with host lists copies every call
     arrays["geom_bodyid"] = torch.as_tensor(
         np.asarray(model.geom_bodyid, dtype=np.int64), device=dev)

@@ -5,8 +5,9 @@ The port of ``ilqg_mujoco_tpu/physics/smooth.py``: the composite-rigid-body
 and RNE recursions are dense masked einsums over (bodies x dofs) with the
 model's ancestor masks, and the body/joint loops are static Python loops
 over tensors with leading batch dims (instances x knots x perturbations).
-Slide and hinge joints are ported; ball and free joints come with
-quaternion states in slice 4.
+All four joint types are ported: a free joint's 6 motion axes are 3
+world-frame translations and 3 child-frame rotations, a ball joint's 3
+child-frame rotations, and both normalise their quaternion before use.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import numpy as np
 import torch
 
 from . import spatial
-from .model import (JNT_BALL, JNT_FREE, JNT_HINGE, JNT_SLIDE, Model,
-                    device_arrays, on_device)
+from .model import (JNT_FREE, JNT_HINGE, JNT_SLIDE, Model, device_arrays,
+                    on_device)
 
 
 class KinOut(NamedTuple):
@@ -35,13 +36,6 @@ class KinOut(NamedTuple):
     M: torch.Tensor         # (..., nv,nv) joint-space inertia (with armature)
     geom_xpos: torch.Tensor  # (..., ngeom,3) geom frame origin, world
     geom_xmat: torch.Tensor  # (..., ngeom,3,3) geom frame, world
-
-
-def unported_joint(jt: int) -> NotImplementedError:
-    """The error every ball/free-joint branch of this slice raises."""
-    kind = {JNT_BALL: "ball", JNT_FREE: "free"}.get(jt, str(jt))
-    return NotImplementedError(
-        f"{kind} joints (quaternion states) are not ported yet: slice 4")
 
 
 def _dof_prefix_mask(model: Model) -> np.ndarray:
@@ -96,21 +90,38 @@ def kinematics(model: Model, qpos: torch.Tensor) -> KinOut:
         quat = spatial.quat_mul(pq, c.body_quat[b])
         for j in [j for j in range(model.njnt) if model.jnt_bodyid[j] == b]:
             jt = int(model.jnt_type[j])
-            if jt not in (JNT_SLIDE, JNT_HINGE):
-                raise unported_joint(jt)
             qadr = int(model.jnt_qposadr[j])
             dadr = int(model.jnt_dofadr[j])
+            if jt == JNT_FREE:
+                pos = qpos[..., qadr:qadr + 3]
+                quat = spatial.quat_normalize(qpos[..., qadr + 3:qadr + 7])
+                anchor, axis = pos, c.eye6[5, 3:]
+                R = spatial.quat_to_mat(quat)
+                for k in range(3):
+                    S[dadr + k] = c.eye6[3 + k]
+                    w = R[..., :, k]
+                    S[dadr + 3 + k] = torch.cat([w, spatial.cross(pos, w)], -1)
+                xanchor[j], xaxis[j] = full(anchor), full(axis)
+                continue
             anchor = pos + spatial.quat_rotate(quat, c.jnt_pos[j])
             axis = spatial.quat_rotate(quat, c.jnt_axis[j])
             if jt == JNT_SLIDE:
                 pos = pos + axis * (qpos[..., qadr] - c.qpos0[qadr])[..., None]
                 S[dadr] = torch.cat([torch.zeros_like(axis), axis], -1)
-            else:
+            elif jt == JNT_HINGE:
                 angle = qpos[..., qadr] - c.qpos0[qadr]
                 qloc = spatial.axis_angle_to_quat(c.jnt_axis[j], angle)
                 quat = spatial.quat_mul(quat, qloc)
                 pos = anchor - spatial.quat_rotate(quat, c.jnt_pos[j])
                 S[dadr] = torch.cat([axis, spatial.cross(anchor, axis)], -1)
+            else:   # JNT_BALL
+                qloc = spatial.quat_normalize(qpos[..., qadr:qadr + 4])
+                quat = spatial.quat_mul(quat, qloc)
+                pos = anchor - spatial.quat_rotate(quat, c.jnt_pos[j])
+                R = spatial.quat_to_mat(quat)
+                for k in range(3):
+                    w = R[..., :, k]
+                    S[dadr + k] = torch.cat([w, spatial.cross(anchor, w)], -1)
             xanchor[j], xaxis[j] = full(anchor), full(axis)
         xpos.append(full(pos))
         xquat.append(full(quat))
@@ -179,10 +190,20 @@ def passive_force(model: Model, qpos: torch.Tensor,
         if k == 0.0:
             continue
         jt = int(model.jnt_type[j])
-        if jt not in (JNT_SLIDE, JNT_HINGE):
-            raise unported_joint(jt)
         qadr, dadr = int(model.jnt_qposadr[j]), int(model.jnt_dofadr[j])
-        springs[dadr] = -k * (qpos[..., qadr] - c.qpos_spring[qadr])
+        if jt in (JNT_SLIDE, JNT_HINGE):
+            springs[dadr] = -k * (qpos[..., qadr] - c.qpos_spring[qadr])
+            continue
+        if jt == JNT_FREE:
+            lin = -k * (qpos[..., qadr:qadr + 3]
+                        - c.qpos_spring[qadr:qadr + 3])
+            for i in range(3):
+                springs[dadr + i] = lin[..., i]
+            qadr, dadr = qadr + 3, dadr + 3
+        rot = -k * spatial.quat_sub(qpos[..., qadr:qadr + 4],
+                                    c.qpos_spring[qadr:qadr + 4])
+        for i in range(3):
+            springs[dadr + i] = rot[..., i]
     if not springs:
         return qfrc
     return torch.stack([qfrc[..., i] + springs[i] if i in springs

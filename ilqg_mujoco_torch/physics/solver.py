@@ -19,8 +19,9 @@ Two modes, as in the reference:
   whether any instance is still active.
 
 On the card each iteration is one replay of a CUDA graph captured once per
-shape (:class:`_GraphedStep`); on the CPU it runs eagerly.  Both run the
-same operations on the same values.
+shape (:class:`_GraphedStep`) and kept in a bounded LRU
+(:data:`MAX_GRAPHS`, :func:`clear_graphs`); on the CPU it runs eagerly.
+Both run the same operations on the same values.
 
 The constraint Jacobian J is per instance, (..., nefc, nv), when the model
 has contacts, and one (nefc, nv) for the whole batch when it has limit
@@ -35,6 +36,7 @@ dual tensors the Function returns what ``_solve_cg`` returns, bit for bit.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -214,19 +216,60 @@ class _GraphedStep:
             dst.copy_(src)
 
 
-_GRAPHS: dict = {}
+# one iteration of a tassa path uses 3 shapes (the linearizer's centre and
+# tangent solves, the alpha rollout), a compat path 3 (the forward pass, the
+# FD centre and perturbations), and an MPC frame adds the env step's
+MAX_GRAPHS = 4
 
 
-def _graphed_step(c, carry, tolerance, ls_iterations) -> _GraphedStep:
-    """The captured step for these shapes, loaded with ``c`` and ``carry``
-    (captured once per shape, dtype, device and solver setting)."""
-    key = (tuple((tuple(t.shape), t.dtype, str(t.device))
-                 for t in tuple(c) + tuple(carry)), tolerance, ls_iterations)
-    if key not in _GRAPHS:
-        _GRAPHS[key] = _GraphedStep(c, carry, tolerance, ls_iterations)
-    step = _GRAPHS[key]
-    step.load(c, carry)           # the warm-up moved the carry
-    return step
+class _GraphCache:
+    """The captured steps, least recently used first, at most ``size`` of
+    them: an evicted step's graph and static buffers are dropped, and a
+    later solve at its shape captures it again (the same kernels on the
+    same values, so the same bits).  ``keys`` holds every key captured
+    since the last :meth:`clear`, and ``captures`` counts the captures."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.steps: OrderedDict = OrderedDict()
+        self.keys: set = set()
+        self.captures = 0
+
+    def get(self, c, carry, tolerance, ls_iterations) -> _GraphedStep:
+        """The captured step for these shapes, loaded with ``c`` and
+        ``carry`` (one per shape, dtype, device and solver setting)."""
+        key = (tuple((tuple(t.shape), t.dtype, str(t.device))
+                     for t in tuple(c) + tuple(carry)), tolerance,
+               ls_iterations)
+        if key in self.steps:
+            self.steps.move_to_end(key)
+        else:
+            while len(self.steps) >= self.size:
+                self.steps.popitem(last=False)
+            self.steps[key] = _GraphedStep(c, carry, tolerance,
+                                           ls_iterations)
+            self.keys.add(key)
+            self.captures += 1
+        step = self.steps[key]
+        step.load(c, carry)       # the warm-up moved the carry
+        return step
+
+    def clear(self):
+        self.steps.clear()
+        self.keys.clear()
+        self.captures = 0
+
+
+_GRAPHS = _GraphCache(MAX_GRAPHS)
+
+
+def clear_graphs():
+    """Drop every captured step and release the allocator's cached blocks
+    on the card (for a caller switching to other shapes, or retrying after
+    running out of memory)."""
+    _GRAPHS.clear()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
 
 
 def _solve_cg(M, Mfac, qacc_smooth, J, D, aref, warmstart,
@@ -243,7 +286,7 @@ def _solve_cg(M, Mfac, qacc_smooth, J, D, aref, warmstart,
              torch.zeros(batch, dtype=x0.dtype, device=x0.device),
              torch.zeros(batch, dtype=torch.bool, device=x0.device))
     if x0.is_cuda:
-        graphed = _graphed_step(c, carry, tolerance, ls_iterations)
+        graphed = _GRAPHS.get(c, carry, tolerance, ls_iterations)
         carry = graphed.carry
     for _ in range(iterations):
         # pinned mode (tolerance 0) runs every iteration, bit-reproducibly;

@@ -1,4 +1,4 @@
-"""Quaternion / rotation / spatial-vector algebra (the slide/hinge subset).
+"""Quaternion / rotation / spatial-vector algebra.
 
 Conventions as in ``ilqg_mujoco_tpu/physics/spatial.py``:
 
@@ -7,8 +7,9 @@ Conventions as in ``ilqg_mujoco_tpu/physics/spatial.py``:
   origin, force vectors ``F = (n_o, f)``.
 
 Every function takes tensors with any leading batch dims.  The quaternion
-helpers that ball and free joints need (``quat_integrate``, ``quat_sub``)
-come with quaternion states in slice 4.
+exponential and log maps (``quat_integrate``, ``quat_sub``) carry the JAX
+package's dtype-aware regularisers, so that forward-mode derivatives and
+cost Hessians through a zero rotation stay finite.
 """
 
 from __future__ import annotations
@@ -31,6 +32,54 @@ def quat_mul(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([q[..., :1], -q[..., 1:]], -1)
+
+
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.sqrt((q * q).sum(-1, keepdim=True))
+
+
+def _eps(dtype) -> float:
+    """The regulariser inside the square roots of the exponential and log
+    maps: second derivatives carry 1/theta^3 terms, so theta_min^3 must stay
+    inside the dtype's range (1e-15 in float64, 1e-6 in float32)."""
+    return 1e-30 if dtype == torch.float64 else 1e-12
+
+
+def quat_integrate(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
+    """MuJoCo mju_quatIntegrate: q rotated by the local-frame angular
+    velocity omega for dt, q ⊗ exp(omega dt / 2), as a smooth exponential
+    (regularised theta, no normalise-the-axis branch), so that forward-mode
+    AD through it is finite at omega = 0."""
+    v = omega * dt
+    theta = torch.sqrt((v * v).sum(-1) + _eps(v.dtype))
+    half = 0.5 * theta
+    s = torch.sin(half) / theta         # -> 0.5 smoothly as theta -> 0
+    dq = torch.cat([torch.cos(half)[..., None], s[..., None] * v], -1)
+    return quat_normalize(quat_mul(q, dq))
+
+
+def quat_sub(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
+    """MuJoCo mju_subQuat: the 3-vector v with qb ⊗ exp(v / 2) = qa, on the
+    shortest arc."""
+    dq = quat_mul(quat_conj(qb), qa)
+    sin_half = torch.sqrt((dq[..., 1:] ** 2).sum(-1) + _eps(dq.dtype))
+    cos_half = dq[..., 0]
+    angle = 2.0 * torch.atan2(sin_half, cos_half)
+    angle = torch.where(angle > torch.pi, angle - 2 * torch.pi, angle)
+    # v = vec(dq) * angle / sin_half.  At a zero rotation the ratio takes
+    # its limit 2 / cos_half, so the map's derivative there is 2 I (the JAX
+    # package divides by 1 instead, which zeroes the derivative and with it
+    # the rotation rows of linearize_exact's A).  The denominator is
+    # guarded, not the quotient: torch.where evaluates both branches, and a
+    # NaN in the one not taken would poison a tangent.
+    small = sin_half <= 1e-14
+    ratio = torch.where(small, 2.0 / torch.where(small, cos_half, 1.0),
+                        angle / torch.where(small, 1.0, sin_half))
+    return dq[..., 1:] * ratio[..., None]
+
+
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """3-vector cross product over the last dim, broadcasting."""
     a, b = torch.broadcast_tensors(a, b)
@@ -42,6 +91,10 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     qw, qv = q[..., :1], q[..., 1:]
     t = 2.0 * cross(qv, v)
     return v + qw * t + cross(qv, t)
+
+
+def quat_rotate_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return quat_rotate(quat_conj(q), v)
 
 
 def quat_to_mat(q: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,9 @@ It must give what the eager loop on the CPU gives, in both solver modes,
 also on a second call with other values (the buffers are reloaded, not
 captured again).  The inputs are hopper states in contact.  Tolerance
 rtol 1e-9 / atol 1e-10 on qacc, and the same iteration count per instance:
-the same float64 operations on two devices.  Skips without a card; on the
+the same float64 operations on two devices.  The cache of captured steps
+is a bounded LRU: a shape evicted and captured again gives the same bits.
+Skips without a card; on the
 card, where JAX may be missing,
 
     python -m pytest tests/test_torch_cuda_solver.py -m cuda --noconftest
@@ -48,3 +50,25 @@ def test_graphed_cg_matches_cpu(tolerance):
                                    tolerance, 16)
         assert torch.equal(itg.cpu(), it)
         torch.testing.assert_close(xg.cpu(), x, rtol=1e-9, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_graph_cache_is_bounded_and_eviction_keeps_bits(monkeypatch):
+    """Three batch sizes through a cache bounded at two graphs: the cache
+    never holds more than two, the first shape is evicted and captured
+    again, and its second solve gives the first one's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    solver.clear_graphs()
+    monkeypatch.setattr(solver._GRAPHS, "size", 2)
+    args = [a.cuda() for a in _problems(0)]
+    results = []
+    for n in (64, 32, 16, 64):
+        results.append(solver._solve_cg(*(a[:n] for a in args), 100, 1e-8,
+                                        16))
+        assert len(solver._GRAPHS.steps) <= 2
+    assert len(solver._GRAPHS.keys) == 3 and solver._GRAPHS.captures == 4
+    (x0, it0), (x3, it3) = results[0], results[3]
+    assert torch.equal(x0, x3) and torch.equal(it0, it3)
+    solver.clear_graphs()
+    assert not solver._GRAPHS.steps

@@ -24,6 +24,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from ilqg_mujoco_tpu.models import envs as jenvs
+from ilqg_mujoco_tpu.ops import linearize as jlinearize
 from ilqg_mujoco_tpu.ops.linearize import LinearizeConfig as JLinCfg
 from ilqg_mujoco_tpu.ops.linearize import linearize_traj as jlinearize_traj
 from ilqg_mujoco_tpu.physics.model import State as JState
@@ -193,13 +194,22 @@ def test_exact_engine_rejects_compat_flags():
 
 
 def test_qpos_diff(assets_dir):
-    """Slide/hinge configurations subtract; quaternion joints raise until
-    their slice."""
+    """Slide/hinge configurations subtract; the humanoid's free root goes
+    through the quaternion log map, as in the JAX package (rtol 1e-12)."""
     m = envs.pendulum().model
     a = torch.tensor([[0.3, -0.2]], dtype=torch.float64)
     b = torch.tensor([[0.1, 0.4]], dtype=torch.float64)
     assert torch.equal(_qpos_diff(m, a, b), a - b)
     humanoid = mjcf.load_model(str(assets_dir / "humanoid.xml"))
-    q = torch.zeros((1, humanoid.nq), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="slice"):
-        _qpos_diff(humanoid, q, q)
+    jhumanoid = jenvs._load("humanoid.xml")
+    rng = np.random.default_rng(5)
+    q = humanoid.qpos0 + 0.1 * rng.standard_normal((3, humanoid.nq))
+    q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
+    r = q[::-1].copy()
+    r[0] = q[0]                      # zero rotation in the first pair
+    got = _qpos_diff(humanoid, torch.tensor(q), torch.tensor(r))
+    want = jax.vmap(lambda x, y: jlinearize._qpos_diff(jhumanoid, x, y))(
+        jnp.asarray(q), jnp.asarray(r))
+    assert got.shape == (3, humanoid.nv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12,
+                               atol=1e-14)

@@ -1,6 +1,6 @@
 """PyTorch port, package rules: it imports neither JAX nor the JAX package,
-its entry points refuse to fall back to the CPU, branches of later slices
-raise, and states carry across as numpy."""
+its entry points refuse to fall back to the CPU, every env of the JAX
+package's registry is ported, and states carry across as numpy."""
 
 import ast
 import dataclasses
@@ -17,7 +17,7 @@ from ilqg_mujoco_torch.kernels import riccati
 from ilqg_mujoco_torch.models import envs
 from ilqg_mujoco_torch.ops.linearize import LinearizeConfig
 from ilqg_mujoco_torch.parallel import batch
-from ilqg_mujoco_torch.physics import forward, mjcf
+from ilqg_mujoco_torch.physics import forward
 from ilqg_mujoco_torch.physics.model import make_state
 from ilqg_mujoco_torch.utils import convert
 
@@ -96,26 +96,25 @@ def test_convert_round_trip():
 
 
 def test_later_slices_raise():
-    # slice 2 (the tassa mode with the ad and exact engines) constructs
+    """Every slice up to quaternion states is ported: the tassa engines
+    construct, the hopper (contacts, Euler) steps, and the tumbler and the
+    humanoid construct, step and take tangent-space state differences; an
+    env name the registry does not hold raises ``KeyError``."""
     ilqr.ILQRConfig(mode="tassa", lin=LinearizeConfig(engine="ad"))
     LinearizeConfig(engine="exact")
-    # slice 3 (contacts, Euler): the hopper constructs and steps
     hopper = envs.make("hopper").model
     s = forward.step(hopper, make_state(hopper, 1, device="cpu"))
     assert s.qpos.shape == (1, 6) and bool(torch.isfinite(s.qpos).all())
-    # slice 4 (quaternion states): the tumbler and the humanoid raise
-    for name in ("tumbler", "humanoid"):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            envs.make(name)
-    assets = ROOT / "ilqg_mujoco_tpu" / "models" / "assets"
-    tumbler = mjcf.load_model(str(assets / "tumbler.xml"))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        forward.step(tumbler, make_state(tumbler, 1, device="cpu"))
-    humanoid = mjcf.load_model(str(assets / "humanoid.xml"))
-    q = torch.zeros((1, humanoid.nq), dtype=torch.float64)
-    v = torch.zeros((1, humanoid.nv), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ilqr.state_diff(humanoid, q, v, q, v)
+    for name, nq, nv in (("tumbler", 9, 8), ("humanoid", 28, 27)):
+        m = envs.make(name).model
+        assert (m.nq, m.nv) == (nq, nv)
+        s0 = make_state(m, 1, device="cpu")
+        s = forward.step(m, s0)
+        assert s.qpos.shape == (1, nq) and bool(torch.isfinite(s.qpos).all())
+        dx = ilqr.state_diff(m, s.qpos, s.qvel, s0.qpos, s0.qvel)
+        assert dx.shape == (1, 2 * nv) and bool(torch.isfinite(dx).all())
+    with pytest.raises(KeyError):
+        envs.make("walker")
 
 
 def test_cpu_wrapper_counts_no_launch():
