@@ -60,7 +60,19 @@ Phases, each of which raises on failure:
 11. determinism: at B=16 two cart-pole compat solves (trace, trajectory,
    K, k) and two hopper contact steps after 300 steps from rest (qpos,
    qvel, qacc) must be bitwise equal;
-12. kernels: each CUDA kernel against its plain PyTorch version on the
+12. entry points: the port's CLI (``python -m ilqg_mujoco_torch.cli``,
+   run in-process through ``cli.main``) at B=4096 in float64 (2 MPC
+   frames, with --checkpoint and --out) and float32 (1 frame), which must
+   launch the Riccati kernel frames x iterations times and give finite
+   costs, with env-frames/s and the peak memory printed; resume against a
+   straight run at B=16 (4 frames, against 2 and 2 resumed), whose
+   checkpoints must be bitwise equal; the live loop at B=1 (3 frames, 30
+   launches), each frame's seconds against the 16.7 ms of a 60 fps frame;
+   ``profiling.Timer`` around a ~50 ms ``torch.cuda._sleep``, which must
+   read at least 90% of the host's synchronised clock; and
+   ``frames.forward_frame`` on the hopper at B=1024, which must advance
+   time by 8 steps and equal 8 ``forward.step`` calls bit for bit;
+13. kernels: each CUDA kernel against its plain PyTorch version on the
    card at the main path's shapes (and ragged batches), in float64 and
    float32.  The Riccati kernel is also held to its plain version on
    seeded inputs for every even n up to riccati.MAX_N at Bt in (5, 257),
@@ -94,6 +106,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -610,6 +623,138 @@ def phase_determinism(B, seed, device):
           "equal")
 
 
+def phase_entry_points(workdir, B, seed, device):
+    """Drive the port's CLI, live loop, Timer and frame helper on the card
+    (phase 12); returns the Riccati launches of each kernel-launching
+    step."""
+    from ilqg_mujoco_torch import cli, live_view
+    from ilqg_mujoco_torch.utils import frames, profiling
+    d = pathlib.Path(workdir)
+    env = envs.pendulum("compat", "fd")
+    iters = env.ilqr.iterations
+    launches = {}
+
+    def cli_run(label, argv, want):
+        riccati.LAUNCHES = 0
+        cli.main(argv + ["--device", device])
+        torch.cuda.synchronize()
+        launches[label] = riccati.LAUNCHES
+        if riccati.LAUNCHES != want:
+            raise AssertionError(f"{label}: the Riccati kernel launched "
+                                 f"{riccati.LAUNCHES} times, expected {want}")
+
+    full = ["pendulum", "--mode", "compat", "--engine", "fd", "--batch",
+            str(B), "--out", str(d / "out.npz")]
+    for dtype, frames_, extra in ((np.float64, 2, ["--x64", "--checkpoint",
+                                                   str(d / "ck.npz")]),
+                                  (np.float32, 1, [])):
+        label = f"cli {np.dtype(dtype).name} B={B}"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cli_run(label, full + ["--frames", str(frames_)] + extra,
+                frames_ * iters)
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        costs = np.load(d / "out.npz")["costs"]
+        if costs.shape != (frames_, B) or costs.dtype != dtype:
+            raise AssertionError(f"{label}: costs {costs.shape} "
+                                 f"{costs.dtype}")
+        if not np.isfinite(costs).all():
+            raise AssertionError(f"{label}: non-finite costs")
+        print(f"entry points: {label}, {frames_} frames: "
+              f"{launches[label]} Riccati launches, peak memory "
+              f"{peak:.2f} GiB, {dt:.1f} s with set-up")
+
+    # resume against a straight run: every array of the checkpoints
+    small = ["pendulum", "--batch", "16", "--iters", "2", "--horizon", "8",
+             "--x64"]
+    ck = {n: str(d / f"{n}.npz") for n in "ABC"}
+    cli_run("cli straight B=16", small + ["--frames", "4", "--checkpoint",
+                                          ck["A"]], 8)
+    cli_run("cli first half B=16", small + ["--frames", "2", "--checkpoint",
+                                            ck["B"]], 4)
+    cli_run("cli resumed B=16", small + ["--frames", "2", "--resume",
+                                         ck["B"], "--checkpoint", ck["C"]], 4)
+    za, zc = np.load(ck["A"]), np.load(ck["C"])
+    if sorted(za.files) != sorted(zc.files):
+        raise AssertionError("resume: the checkpoints hold other arrays")
+    diff = {k: float(np.nanmax(np.abs(za[k].astype(np.float64)
+                                      - zc[k].astype(np.float64)),
+                               initial=0.0))
+            for k in za.files if not np.array_equal(za[k], zc[k])}
+    if diff:
+        worst = max(diff, key=diff.get)
+        raise AssertionError(f"resume: 2 + 2 resumed frames differ from 4 "
+                             f"straight frames in {sorted(diff)}; largest "
+                             f"difference {diff[worst]:.3e} in {worst}")
+    print(f"entry points: 2 + 2 resumed frames equal 4 straight frames bit "
+          f"for bit at B=16 ({len(za.files)} arrays)")
+
+    # the live loop at B=1, headless
+    riccati.LAUNCHES = 0
+    hist, seconds = live_view.live_loop("pendulum", frames=3, fps=0.0,
+                                        headless=True, device=device)
+    torch.cuda.synchronize()
+    launches["live loop B=1"] = riccati.LAUNCHES
+    if riccati.LAUNCHES != 3 * iters:
+        raise AssertionError(f"live loop: {riccati.LAUNCHES} Riccati "
+                             f"launches, expected {3 * iters}")
+    if hist.shape != (3, env.model.nq) or not np.isfinite(hist).all():
+        raise AssertionError(f"live loop: history {hist.shape} not finite")
+    frame_budget = 1.0 / 60.0
+    print("entry points: live loop at B=1 (compat+fd, N=20, 10 "
+          "iterations), frame seconds " + ", ".join(
+              f"{t:.3f} ({t / frame_budget:.0f}x the 16.7 ms frame)"
+              for t in seconds))
+
+    # Timer: an honest fence around ~50 ms of device time, no host sync
+    timer = profiling.Timer(device)
+    probe = 10_000_000
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    end.synchronize()
+    cycles = int(probe * 50.0 / start.elapsed_time(end))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timer.phase("sleep") as box:
+        torch.cuda._sleep(cycles)
+    t_exit = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if box["seconds"] < 0.9 * wall or t_exit < 0.9 * wall:
+        raise AssertionError(f"Timer: read {box['seconds'] * 1e3:.2f} ms and "
+                             f"returned after {t_exit * 1e3:.2f} ms of "
+                             f"{wall * 1e3:.2f} ms")
+    print(f"entry points: Timer read {box['seconds'] * 1e3:.2f} ms and "
+          f"returned after {t_exit * 1e3:.2f} ms of the host's "
+          f"{wall * 1e3:.2f} ms ({100 * box['seconds'] / wall:.1f}%)")
+
+    # forward_frame on the hopper
+    hop = envs.make("hopper")
+    m = hop.model
+    s = batch.batch_states(hop, HOPPER_B, 0.01,
+                           generator=torch.Generator().manual_seed(seed),
+                           device=device)
+    (got, t_frame) = sync_time(lambda: frames.forward_frame(m, s))
+    want = s
+    for _ in range(8):
+        want = fwd.step(m, want)
+    for f in dataclasses.fields(got):
+        if not torch.equal(getattr(got, f.name), getattr(want, f.name)):
+            raise AssertionError(f"forward_frame differs from 8 steps in "
+                                 f"{f.name}")
+    adv = float((got.time - s.time - 8 * m.opt.timestep).abs().max())
+    if frames.steps_per_frame(m) != 8 or adv > 1e-12:
+        raise AssertionError(f"forward_frame: {frames.steps_per_frame(m)} "
+                             f"steps, time off by {adv:.3e}")
+    print(f"entry points: forward_frame on the hopper at B={HOPPER_B} "
+          f"({t_frame:.3f} s) advanced 8 steps, equal to 8 forward.step "
+          "calls bit for bit")
+    return launches
+
+
 def hopper_compat_env():
     """The hopper golden configuration: compat+fd with the reference's
     transposed-A quirk (tests/test_golden_hopper.py)."""
@@ -921,8 +1066,13 @@ def main():
     mark("determinism")
     phase_determinism(DETERMINISM_B, SEED, "cuda")
     clear_graph_cache("determinism")
+    mark("entry points")
+    with tempfile.TemporaryDirectory() as workdir:
+        entry_launches = phase_entry_points(workdir, B, SEED, "cuda")
+    clear_graph_cache("entry points")
     mark("kernels")
     kernels = phase_kernels(env, args, main_out["launches"], registers)
+    kernels[0]["entry_point_launches"] = entry_launches
     mark("done")
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -165,6 +165,13 @@ def _contact_J(rt, kin: KinOut, contacts: collision.Contacts):
                       n3 - mt2], -2)
 
 
+def make_efc(model: Model, kin: KinOut, qpos: torch.Tensor,
+             qvel: torch.Tensor, contacts: collision.Contacts) -> Efc:
+    """Assemble every unilateral constraint row (static shape)."""
+    pos = make_efc_pos(model, kin, qpos, contacts)
+    return Efc(J=pos.J, D=pos.D, aref=pos.aref_of(qvel), pos=pos.pos)
+
+
 def make_efc_pos(model: Model, kin: KinOut, qpos: torch.Tensor,
                  contacts: collision.Contacts) -> EfcPos:
     """Position-stage constraint assembly: everything that does not depend

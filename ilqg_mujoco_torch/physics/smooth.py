@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import linalg
 from . import spatial
 from .model import (JNT_FREE, JNT_HINGE, JNT_SLIDE, Model, device_arrays,
                     on_device)
@@ -153,13 +154,21 @@ def kinematics(model: Model, qpos: torch.Tensor) -> KinOut:
                   inertia, M, geom_xpos, geom_xmat)
 
 
+def body_velocities(model: Model, kin: KinOut,
+                    qvel: torch.Tensor) -> torch.Tensor:
+    """Spatial velocity of every body, (..., nbody, 6):
+    V_b = sum_i mask[b, i] S_i qvel_i."""
+    mask = device_arrays(model, qvel.device, qvel.dtype).dof_mask
+    return torch.einsum("bi,...ix,...i->...bx", mask, kin.S, qvel)
+
+
 def bias_force(model: Model, kin: KinOut, qvel: torch.Tensor) -> torch.Tensor:
     """qfrc_bias = C(q, qvel) + G: RNE with qacc=0 as masked einsums, gravity
     as a fictitious base acceleration (mjData.qfrc_bias semantics)."""
     dt, dev = qvel.dtype, qvel.device
     c = device_arrays(model, dev, dt)
     mask = c.dof_mask                                        # (nbody, nv)
-    V = torch.einsum("bi,...ix,...i->...bx", mask, kin.S, qvel)
+    V = body_velocities(model, kin, qvel)
 
     # velocity-product acceleration: per-dof prefix velocities
     DM = dof_prefix_mask(model, dev, dt)                     # (nv, nv)
@@ -244,3 +253,27 @@ def applied_force(model: Model, kin: KinOut, qfrc_applied: torch.Tensor,
     w = torch.cat([t + spatial.cross(kin.xipos, f), f], -1)
     return qfrc_applied + torch.einsum("bi,...ix,...bx->...i", c.dof_mask,
                                        kin.S, w)
+
+
+def smooth_dynamics(model: Model, qpos, qvel, ctrl, qfrc_applied,
+                    xfrc_applied):
+    """The whole smooth pipeline: returns (kin, qfrc_smooth, qacc_smooth,
+    Mfac), with qacc_smooth = M^{-1} qfrc_smooth (mj_fwdAcceleration
+    analog) and Mfac the lower Cholesky factor of M."""
+    kin = kinematics(model, qpos)
+    qfrc_smooth = (passive_force(model, qpos, qvel)
+                   + actuator_force(model, ctrl)
+                   - bias_force(model, kin, qvel)
+                   + applied_force(model, kin, qfrc_applied, xfrc_applied))
+    Mfac = linalg.cholesky(kin.M)
+    return kin, qfrc_smooth, linalg.cho_solve(Mfac, qfrc_smooth), Mfac
+
+
+def point_jacobian(model: Model, kin: KinOut, point: torch.Tensor,
+                   bodyid) -> torch.Tensor:
+    """Translational Jacobian (..., 3, nv) of the world ``point`` (..., 3)
+    on body ``bodyid`` (an int, or an index tensor with the batch dims):
+    row i is S_lin_i + S_ang_i x point where dof i moves the body."""
+    mask = device_arrays(model, point.device, point.dtype).dof_mask[bodyid]
+    lin = kin.S[..., 3:] + spatial.cross(kin.S[..., :3], point[..., None, :])
+    return (mask[..., None] * lin).transpose(-1, -2)

@@ -12,14 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from ilqg_mujoco_torch import ilqr, mpc
+from ilqg_mujoco_torch import ilqr, live_view, mpc
 from ilqg_mujoco_torch.kernels import riccati
 from ilqg_mujoco_torch.models import envs
 from ilqg_mujoco_torch.ops.linearize import LinearizeConfig
 from ilqg_mujoco_torch.parallel import batch
 from ilqg_mujoco_torch.physics import forward
 from ilqg_mujoco_torch.physics.model import make_state
-from ilqg_mujoco_torch.utils import convert
+from ilqg_mujoco_torch.utils import checkpoint, convert, frames, profiling
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "ilqg_mujoco_torch"
@@ -60,7 +60,7 @@ def test_no_source_imports_jax(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
-def test_entry_points_without_device_need_cuda():
+def test_entry_points_without_device_need_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: device=None is valid here")
     env = envs.pendulum()
@@ -73,6 +73,17 @@ def test_entry_points_without_device_need_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.state_from_numpy(convert.to_numpy(
             make_state(env.model, 1, device="cpu")))
+    ck = tmp_path / "ck.npz"
+    checkpoint.save(ck, *mpc.init(dataclasses.replace(
+        env, ilqr=ilqr.ILQRConfig(horizon=2, iterations=1)), device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        checkpoint.load(ck)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        frames.forward_frame(env.model, make_state(env.model))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        live_view.live_loop("pendulum", frames=1, headless=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        profiling.Timer()
 
 
 def test_convert_round_trip():
