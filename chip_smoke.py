@@ -72,7 +72,19 @@ Phases, each of which raises on failure:
    read at least 90% of the host's synchronised clock; and
    ``frames.forward_frame`` on the hopper at B=1024, which must advance
    time by 8 steps and equal 8 ``forward.step`` calls bit for bit;
-13. kernels: each CUDA kernel against its plain PyTorch version on the
+13. bench and tools: the port's bench
+   (``python -m ilqg_mujoco_torch.bench``, run in-process through
+   ``bench.main`` with its env knobs) on the
+   cart-pole compat+fd at B=4096 in float64, REPS=2 and TRIALS=1 (a warm
+   solve and chains of 1 and 2), whose JSON line must parse, with a
+   positive value, ``vs_baseline`` equal to value / the C core's rate in
+   baselines.json, and (1 + 1 + 2) x 10 Riccati launches;
+   ``tools.perf_breakdown`` on the same path at REPS=1, whose ``backward``
+   phase runs the kernel (warm-up and one rep each launch it once and the
+   10-iteration solve 10 times: 22); and ``tools.humanoid_balance`` at its
+   defaults but 2 frames, whose summary must be finite.  Each tool's
+   output is printed before the last line;
+14. kernels: each CUDA kernel against its plain PyTorch version on the
    card at the main path's shapes (and ragged batches), in float64 and
    float32.  The Riccati kernel is also held to its plain version on
    seeded inputs for every even n up to riccati.MAX_N at Bt in (5, 257),
@@ -99,12 +111,14 @@ matrix products and cuDNN, so float32 runs in full float32.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import pathlib
 import re
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -122,6 +136,7 @@ from ilqg_mujoco_torch.parallel import batch  # noqa: E402
 from ilqg_mujoco_torch.physics import collision, smooth, solver  # noqa: E402
 from ilqg_mujoco_torch.physics import forward as fwd  # noqa: E402
 from ilqg_mujoco_torch.physics.model import make_state  # noqa: E402
+from ilqg_mujoco_torch.utils import profiling  # noqa: E402
 
 B = 4096        # the pendulum's batch in bench.py
 HOPPER_B = 1024  # the hopper's batch in bench.py
@@ -154,13 +169,6 @@ SWEEP_BT = (5, 257)
 SWEEP_HORIZON = 20
 NO_SPILL_N = (4, 8)          # float64 instantiations that must not spill
 L2_FLUSH_BYTES = 128 * 2 ** 20
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def sync_time(fn):
@@ -628,7 +636,7 @@ def phase_entry_points(workdir, B, seed, device):
     (phase 12); returns the Riccati launches of each kernel-launching
     step."""
     from ilqg_mujoco_torch import cli, live_view
-    from ilqg_mujoco_torch.utils import frames, profiling
+    from ilqg_mujoco_torch.utils import frames
     d = pathlib.Path(workdir)
     env = envs.pendulum("compat", "fd")
     iters = env.ilqr.iterations
@@ -753,6 +761,109 @@ def phase_entry_points(workdir, B, seed, device):
           f"({t_frame:.3f} s) advanced 8 steps, equal to 8 forward.step "
           "calls bit for bit")
     return launches
+
+
+@contextlib.contextmanager
+def env_knobs(knobs):
+    """Set the environment variables ``knobs`` for the body, then put the
+    environment back as it was."""
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_tool(label, fn, knobs):
+    """Run a tool's ``main`` in-process under ``knobs``, with the Riccati
+    launch count set to 0 just before; print its standard output with a
+    prefix and return (return code, its last line, launches, seconds)."""
+    buf = io.StringIO()
+    riccati.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with env_knobs(knobs), contextlib.redirect_stdout(buf):
+        rc = fn()
+    dt = time.perf_counter() - t0
+    launches = riccati.LAUNCHES
+    lines = [line for line in buf.getvalue().splitlines() if line.strip()]
+    for line in lines:
+        print(f"  {label}: {line}")
+    return rc, lines[-1], launches, dt
+
+
+def phase_bench_and_tools(workdir, B, device):
+    """Drive the port's bench and both tools on the card (phase 13);
+    returns the Riccati launches of the bench and of perf_breakdown."""
+    from ilqg_mujoco_torch import bench
+    from ilqg_mujoco_torch.tools import humanoid_balance, perf_breakdown
+    iters = envs.pendulum("compat", "fd").ilqr.iterations
+    path = {"ILQG_BENCH_ENV": "pendulum", "ILQG_BENCH_MODE": "compat",
+            "ILQG_BENCH_ENGINE": "fd", "ILQG_BENCH_BATCH": str(B)}
+    reps, trials = 2, 1
+    rc, last, bench_launches, dt = run_tool(
+        "bench", lambda: bench.main(device),
+        dict(path, ILQG_BENCH_REPS=str(reps), ILQG_BENCH_TRIALS=str(trials),
+             ILQG_BENCH_DTYPE="float64"))
+    line = json.loads(last)
+    ref = json.loads((pathlib.Path(__file__).resolve().parent
+                      / "baselines.json").read_text())["pendulum"]
+    want_vs = line["value"] / ref["ilqr_iters_per_s"]
+    if rc != 0 or not line["value"] > 0:
+        raise AssertionError(f"bench: rc {rc}, line {last}")
+    # vs_baseline is the unrounded rate's ratio, rounded to 0.01
+    if abs(line["vs_baseline"] - want_vs) > 0.0051:
+        raise AssertionError(f"bench: vs_baseline {line['vs_baseline']} is "
+                             f"not value / {ref['ilqr_iters_per_s']:.2f} = "
+                             f"{want_vs:.4f}")
+    want = iters * (1 + trials * (max(reps // 2, 1) + reps))
+    if bench_launches != want:
+        raise AssertionError(f"bench: {bench_launches} Riccati launches, "
+                             f"expected {want}")
+    print(f"bench and tools: bench line {last}")
+    print(f"bench and tools: bench ran {dt:.1f} s with set-up, "
+          f"{bench_launches} Riccati launches")
+
+    rc, last, pb_launches, dt = run_tool(
+        "perf_breakdown", lambda: perf_breakdown.main(device),
+        dict(path, ILQG_BENCH_REPS="1"))
+    json.loads(last)                # the line must parse
+    want = 2 * (1 + iters)
+    if rc != 0:
+        raise AssertionError(f"perf_breakdown: rc {rc}")
+    if pb_launches != want:
+        raise AssertionError(f"perf_breakdown: {pb_launches} Riccati "
+                             f"launches, expected {want} (its backward "
+                             "phase must run the kernel)")
+    print(f"bench and tools: perf_breakdown line {last}")
+    print(f"bench and tools: perf_breakdown ran {dt:.1f} s with set-up, "
+          f"{pb_launches} Riccati launches")
+
+    out = pathlib.Path(workdir) / "humanoid_balance.npz"
+    frames_ = 2
+    rc, last, _, dt = run_tool(
+        "humanoid_balance",
+        lambda: humanoid_balance.main([str(out)], device),
+        {"ILQG_HUM_FRAMES": str(frames_)})
+    written = pathlib.Path(last.removeprefix("wrote "))
+    z = np.load(written)
+    summary = json.loads(str(z["summary"]))
+    numbers = [v for v in summary.values() if isinstance(v, (int, float))]
+    if (summary["frames"] != frames_ or not summary["finite"]
+            or not np.isfinite(numbers).all()
+            or not all(np.isfinite(z[k]).all() for k in z.files
+                       if k != "summary")):
+        raise AssertionError(f"humanoid_balance: {written.name}, summary "
+                             f"{summary}")
+    print(f"bench and tools: humanoid_balance wrote {written.name}, "
+          f"{frames_} finite frames in {dt:.1f} s with set-up "
+          f"({summary['wall_seconds']} s by the tool), balanced "
+          f"{summary['balanced']}")
+    return dict(bench=bench_launches, perf_breakdown=pb_launches)
 
 
 def hopper_compat_env():
@@ -1028,7 +1139,7 @@ def main():
         print(f"[{time.perf_counter() - t_start:.1f} s] {phase}", flush=True)
 
     phase_environment()
-    card = card_line()
+    card = profiling.device_line("cuda")
     print("card:", card)
     registers = phase_build()
     mark("cart-pole compat+fd")
@@ -1070,9 +1181,14 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         entry_launches = phase_entry_points(workdir, B, SEED, "cuda")
     clear_graph_cache("entry points")
+    mark("bench and tools")
+    with tempfile.TemporaryDirectory() as workdir:
+        bench_launches = phase_bench_and_tools(workdir, B, "cuda")
+    clear_graph_cache("bench and tools")
     mark("kernels")
     kernels = phase_kernels(env, args, main_out["launches"], registers)
     kernels[0]["entry_point_launches"] = entry_launches
+    kernels[0]["bench_launches"] = bench_launches
     mark("done")
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -121,15 +121,18 @@ def integrate_pos(model: Model, qpos: torch.Tensor, qvel: torch.Tensor,
     ball and free-joint quaternions by the quaternion exponential (the map
     the FD linearizer's tangent perturbations use, mju_quatIntegrate)."""
     cols = list(qpos.unbind(-1))
+    # h * qvel on the whole vector: under torch.func.hessian a 0-dim slice
+    # times a Python float, once stacked, comes back promoted to float64
+    step = h * qvel
     for j in range(model.njnt):
         jt = int(model.jnt_type[j])
         qadr, dadr = int(model.jnt_qposadr[j]), int(model.jnt_dofadr[j])
         if jt in (JNT_SLIDE, JNT_HINGE):
-            cols[qadr] = cols[qadr] + h * qvel[..., dadr]
+            cols[qadr] = cols[qadr] + step[..., dadr]
             continue
         if jt == JNT_FREE:
             for i in range(3):
-                cols[qadr + i] = cols[qadr + i] + h * qvel[..., dadr + i]
+                cols[qadr + i] = cols[qadr + i] + step[..., dadr + i]
             qadr, dadr = qadr + 3, dadr + 3
         q = spatial.quat_integrate(qpos[..., qadr:qadr + 4],
                                    qvel[..., dadr:dadr + 3], h)

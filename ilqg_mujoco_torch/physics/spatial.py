@@ -53,10 +53,12 @@ def quat_integrate(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
     (regularised theta, no normalise-the-axis branch), so that forward-mode
     AD through it is finite at omega = 0."""
     v = omega * dt
-    theta = torch.sqrt((v * v).sum(-1) + _eps(v.dtype))
+    # keepdim: under torch.func.hessian the square root of a 0-dim
+    # per-instance norm, unsqueezed, comes back promoted to float64
+    theta = torch.sqrt((v * v).sum(-1, keepdim=True) + _eps(v.dtype))
     half = 0.5 * theta
     s = torch.sin(half) / theta         # -> 0.5 smoothly as theta -> 0
-    dq = torch.cat([torch.cos(half)[..., None], s[..., None] * v], -1)
+    dq = torch.cat([torch.cos(half), s * v], -1)
     return quat_normalize(quat_mul(q, dq))
 
 
@@ -64,8 +66,10 @@ def quat_sub(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
     """MuJoCo mju_subQuat: the 3-vector v with qb ⊗ exp(v / 2) = qa, on the
     shortest arc."""
     dq = quat_mul(quat_conj(qb), qa)
-    sin_half = torch.sqrt((dq[..., 1:] ** 2).sum(-1) + _eps(dq.dtype))
-    cos_half = dq[..., 0]
+    # keepdim, as in quat_integrate, keeps float32 Hessians float32
+    sin_half = torch.sqrt((dq[..., 1:] ** 2).sum(-1, keepdim=True)
+                          + _eps(dq.dtype))
+    cos_half = dq[..., :1]
     angle = 2.0 * torch.atan2(sin_half, cos_half)
     angle = torch.where(angle > torch.pi, angle - 2 * torch.pi, angle)
     # v = vec(dq) * angle / sin_half.  At a zero rotation the ratio takes
@@ -77,7 +81,7 @@ def quat_sub(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
     small = sin_half <= 1e-14
     ratio = torch.where(small, 2.0 / torch.where(small, cos_half, 1.0),
                         angle / torch.where(small, 1.0, sin_half))
-    return dq[..., 1:] * ratio[..., None]
+    return dq[..., 1:] * ratio
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

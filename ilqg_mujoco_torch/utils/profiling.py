@@ -4,7 +4,8 @@
 On the card a phase is timed by two CUDA events on the current stream,
 and the phase synchronizes on its end event when it exits, so the time
 covers all the work the phase enqueued.  On the CPU it is
-``time.perf_counter``.
+``time.perf_counter``.  :func:`device_line` names the device a number was
+measured on.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import json
 import pathlib
+import subprocess
 import time
 from typing import Dict
 
@@ -90,6 +92,21 @@ def trace(logdir):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(out / "trace.json"))
+
+
+def device_line(device=None) -> str:
+    """The device a measurement runs on, as it is written beside the
+    number: the card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them for
+    the first card (a card may be set below its maximum power and then runs
+    slower), or ``"cpu"``."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev.type
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def throughput(n_items: int, seconds: float, unit: str = "items") -> str:

@@ -12,13 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from ilqg_mujoco_torch import ilqr, live_view, mpc
+from ilqg_mujoco_torch import bench, ilqr, live_view, mpc
 from ilqg_mujoco_torch.kernels import riccati
 from ilqg_mujoco_torch.models import envs
 from ilqg_mujoco_torch.ops.linearize import LinearizeConfig
 from ilqg_mujoco_torch.parallel import batch
 from ilqg_mujoco_torch.physics import forward
 from ilqg_mujoco_torch.physics.model import make_state
+from ilqg_mujoco_torch.tools import humanoid_balance, perf_breakdown
 from ilqg_mujoco_torch.utils import checkpoint, convert, frames, profiling
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -84,6 +85,13 @@ def test_entry_points_without_device_need_cuda(tmp_path):
         live_view.live_loop("pendulum", frames=1, headless=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         profiling.Timer()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        profiling.device_line()
+    for main in (bench.main, perf_breakdown.main,
+                 lambda: humanoid_balance.main([str(tmp_path / "h.npz")])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main()
+    assert not (tmp_path / "h.npz").exists()
 
 
 def test_convert_round_trip():

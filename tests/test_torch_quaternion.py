@@ -18,6 +18,8 @@ port's FD and AD against the JAX package's at
 tests/test_torch_linearize.py's rtol 1e-6 / atol 1e-8 (FD) and
 tests/test_torch_linearize_ad.py's rtol 1e-8 / atol 1e-10 (AD)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -203,7 +205,7 @@ def test_derivatives_finite_at_zero_rotation(dtype):
     0.5 q (x) (0, e_k) in the quaternion rows, and through quat_sub of two
     equal quaternions a finite tangent; torch.func.hessian of the
     humanoid's cost through integrate_pos at dx = 0 (the tassa cost
-    quadratics) is finite."""
+    quadratics) is finite and of the state's dtype."""
     env = envs.make("humanoid")
     m = env.model
     rng = np.random.default_rng(2)
@@ -233,7 +235,26 @@ def test_derivatives_finite_at_zero_rotation(dtype):
     quad = ilqr._cost_quadratics(env.cost_fn, m, s)
     for name, x in zip(("lx", "lu", "lxx", "luu", "lux"), quad):
         assert bool(torch.isfinite(x).all()), name
+        assert x.dtype == dtype, name
     assert quad[2].shape == (3, 2 * nv, 2 * nv)
+
+
+def test_float32_tassa_solve_on_quaternion_states():
+    """A float32 tassa solve on quaternion states (the tumbler) stays
+    float32 (the cost Hessians through ``integrate_pos`` once came back
+    float64, and the recursion then refused to mix the two), at a cut
+    horizon and one iteration; tests/test_torch_tools.py runs the
+    humanoid's float32 solve through ``humanoid_balance``."""
+    env = envs.make("tumbler")
+    env = dataclasses.replace(env, ilqr=dataclasses.replace(
+        env.ilqr, horizon=3, iterations=1))
+    s = make_state(env.model, 1, dtype=torch.float32, device="cpu")
+    sol, trace = ilqr.solve(env.model, env.cost_fn, s,
+                            ilqr.init_solver(env.model, s, env.ilqr),
+                            env.ilqr)
+    for x in (trace, sol.K, sol.k, sol.traj.qpos):
+        assert x.dtype == torch.float32
+        assert bool(torch.isfinite(x).all())
 
 
 @pytest.fixture(scope="module")
