@@ -84,7 +84,23 @@ Phases, each of which raises on failure:
    10-iteration solve 10 times: 22); and ``tools.humanoid_balance`` at its
    defaults but 2 frames, whose summary must be finite.  Each tool's
    output is printed before the last line;
-14. kernels: each CUDA kernel against its plain PyTorch version on the
+14. data parallel: the main path's solve and MPC frame at the same B,
+   seed and width, split over ranks (``parallel/distributed.launch``, one
+   process each, driven through ``tools/distributed_check``): (a)
+   ``device_count()`` ranks over nccl, one card each, and (b) 2 ranks
+   sharing ``cuda:0`` over gloo.  Every gathered value must be finite, the
+   gathered traces, trajectories, gains and frame results must match the
+   main path's at the golden tolerances of phase 4, ``global_mean`` of the
+   last costs must equal the mean of the gathered ones at rtol 1e-12, and
+   every rank must launch the Riccati kernel 20 times; a rank that raises
+   or outlives its timeout fails the run.  Each rank's device, block,
+   seconds, launches and peak memory are printed, with the whole batch's
+   iterations/s.  (c) With two or more cards, a solve on ``cuda:1`` while
+   ``cuda:0`` is current must equal the one on ``cuda:0`` bit for bit (the
+   CG's graphs are captured on their tensors' card), and
+   ``clear_graphs`` must release ``cuda:1``'s cache too; with one card a
+   line says so;
+15. kernels: each CUDA kernel against its plain PyTorch version on the
    card at the main path's shapes (and ragged batches), in float64 and
    float32.  The Riccati kernel is also held to its plain version on
    seeded inputs for every even n up to riccati.MAX_N at Bt in (5, 257),
@@ -132,7 +148,7 @@ from ilqg_mujoco_torch import ilqr  # noqa: E402
 from ilqg_mujoco_torch.kernels import _build, riccati  # noqa: E402
 from ilqg_mujoco_torch.models import envs  # noqa: E402
 from ilqg_mujoco_torch.ops.linearize import linearize_traj  # noqa: E402
-from ilqg_mujoco_torch.parallel import batch  # noqa: E402
+from ilqg_mujoco_torch.parallel import batch, distributed  # noqa: E402
 from ilqg_mujoco_torch.physics import collision, smooth, solver  # noqa: E402
 from ilqg_mujoco_torch.physics import forward as fwd  # noqa: E402
 from ilqg_mujoco_torch.physics.model import make_state  # noqa: E402
@@ -169,6 +185,7 @@ SWEEP_BT = (5, 257)
 SWEEP_HORIZON = 20
 NO_SPILL_N = (4, 8)          # float64 instantiations that must not spill
 L2_FLUSH_BYTES = 128 * 2 ** 20
+DP_TIMEOUT = 300             # seconds for the ranks of one run to end
 
 
 def sync_time(fn):
@@ -299,7 +316,8 @@ def phase_main_path(env, B, seed, device):
           f"(float64, B={B}); mean cost {float(trace[:, 0].mean()):.6f} -> "
           f"{float(trace[:, -1].mean()):.6f}; Riccati launches {launches}")
     return dict(states=states, sols=sols, sol=sol, trace=trace,
-                launches=launches, t_solve=t_solve)
+                launches=launches, t_solve=t_solve,
+                frame_costs=torch.stack(frame_costs, 1), frame_qpos=s.qpos)
 
 
 def count_cuda_kernels(fn):
@@ -866,6 +884,97 @@ def phase_bench_and_tools(workdir, B, device):
     return dict(bench=bench_launches, perf_breakdown=pb_launches)
 
 
+def data_parallel_run(label, nprocs, cfg, device, main):
+    """``tools/distributed_check``'s solve on ``nprocs`` ranks, held to the
+    main path; returns each rank's Riccati launches."""
+    from ilqg_mujoco_torch.tools import distributed_check as dc
+    results, dt = sync_time(lambda: distributed.launch(
+        dc.rank_check, nprocs, cfg, device=device, timeout=DP_TIMEOUT))
+    sol = main["sol"]
+    reference = dict(arrays={k: v.cpu() for k, v in (
+        ("trace", main["trace"]), ("qpos", sol.traj.qpos),
+        ("ctrl", sol.traj.ctrl), ("K", sol.K), ("k", sol.k),
+        ("frame_costs", main["frame_costs"]),
+        ("frame_qpos", main["frame_qpos"]))})
+    errs = dc.compare(results, reference, dc.GOLDEN_TOLS)
+    iters = envs.pendulum("compat", "fd").ilqr.iterations
+    want = iters * (1 + cfg.frames)
+    records = [r["record"] for r in results]
+    for r in records:
+        print(f"data parallel {label}: rank {r['rank']} of {r['world']} on "
+              f"{r['device']} ({r['device_name']}), rows [{r['block'][0]}, "
+              f"{r['block'][1]}), solve "
+              f"{r['solve_s']:.3f} s, MPC frame {r['frames_s']:.3f} s, "
+              f"{r['launches']} Riccati launches, peak {r['peak_gib']:.2f} "
+              "GiB")
+        if r["launches"] != want:
+            raise AssertionError(f"{label}: rank {r['rank']} launched the "
+                                 f"Riccati kernel {r['launches']} times, "
+                                 f"expected {want}")
+    main_mean = float(main["trace"][:, -1].mean())
+    mean = results[0]["mean_last"]
+    slowest = max(r["solve_s"] for r in records)
+    print(f"data parallel {label}: {cfg.batch * iters / slowest:.1f} iLQR "
+          f"iterations/s over the whole batch (B={cfg.batch}, slowest rank's "
+          f"solve {slowest:.3f} s; main path {main['t_solve']:.3f} s); "
+          f"{dt:.1f} s with start-up; global_mean of the last costs "
+          f"{mean:.12f} (main path's mean {main_mean:.12f}, relative "
+          f"difference {abs(mean - main_mean) / abs(main_mean):.2e}); max abs "
+          "err against the main path " + ", ".join(
+              f"{k} {e:.2e}" for k, e in errs.items()))
+    return [r["launches"] for r in records]
+
+
+def check_graphs_on_second_card(env, B, seed):
+    """A solve on cuda:1 while cuda:0 is current must give the bits of the
+    same solve on cuda:0, and ``clear_graphs`` must empty cuda:1's cache."""
+    solves = {}
+    for dev in ("cuda:0", "cuda:1"):
+        gen = torch.Generator().manual_seed(seed)
+        states, sols = batch.init_batched(env, B, qpos_noise=0.01,
+                                          generator=gen, device=dev)
+        solves[dev] = batch.make_batched_solve(env)(states, sols)
+    torch.cuda.synchronize("cuda:1")
+    if solves["cuda:1"][1].device != torch.device("cuda:1"):
+        raise AssertionError("the cuda:1 solve left its card")
+    same_solves("solves on cuda:0 and cuda:1", *[
+        batch.tree_map(lambda t: t.cpu(), solves[d])
+        for d in ("cuda:0", "cuda:1")])
+    gib = 2 ** 30
+    before = torch.cuda.memory_reserved("cuda:1") / gib
+    del solves
+    solver.clear_graphs()
+    after = torch.cuda.memory_reserved("cuda:1") / gib
+    current = torch.cuda.current_device()
+    print(f"data parallel: a B={B} solve on cuda:1 (cuda:{current} current)"
+          " equals the one on cuda:0 bit for bit "
+          f"(trace, qpos, ctrl, K, k); clear_graphs: cuda:1 reserved "
+          f"{before:.2f} -> {after:.2f} GiB")
+    if not after < before:
+        raise AssertionError("clear_graphs left cuda:1's cache as it was")
+
+
+def phase_data_parallel(main, B, seed):
+    """Phase 14: the main path split over ranks; returns each run's
+    per-rank Riccati launches."""
+    from ilqg_mujoco_torch.tools import distributed_check as dc
+    cfg = dc.Config(batch=B, frames=FRAMES, seed=seed)
+    n = torch.cuda.device_count()
+    launches = {
+        f"nccl x{n}": data_parallel_run(f"(a) {n} rank(s), nccl, one card "
+                                        "each", n, cfg, None, main),
+        "gloo x2 on cuda:0": data_parallel_run(
+            "(b) 2 ranks sharing cuda:0, gloo", 2, cfg, "cuda:0", main)}
+    if n >= 2:
+        check_graphs_on_second_card(envs.pendulum("compat", "fd"),
+                                    DETERMINISM_B, seed)
+    else:
+        print("data parallel: one card, so (a) ran one rank without a "
+              "process group, and the check of a solve on a second card "
+              "(the CG's graphs on their tensors' card) did not run")
+    return launches
+
+
 def hopper_compat_env():
     """The hopper golden configuration: compat+fd with the reference's
     transposed-A quirk (tests/test_golden_hopper.py)."""
@@ -1185,10 +1294,14 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         bench_launches = phase_bench_and_tools(workdir, B, "cuda")
     clear_graph_cache("bench and tools")
+    mark("data parallel")
+    dp_launches = phase_data_parallel(main_out, B, SEED)
+    clear_graph_cache("data parallel")
     mark("kernels")
     kernels = phase_kernels(env, args, main_out["launches"], registers)
     kernels[0]["entry_point_launches"] = entry_launches
     kernels[0]["bench_launches"] = bench_launches
+    kernels[0]["data_parallel_launches"] = dp_launches
     mark("done")
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -12,6 +12,8 @@ Examples:
   python -m ilqg_mujoco_torch.cli hopper --frames 50 --checkpoint ck.npz
   python -m ilqg_mujoco_torch.cli hopper --frames 50 --resume ck.npz
   python -m ilqg_mujoco_torch.cli pendulum --device cpu --frames 10
+  python -m ilqg_mujoco_torch.cli pendulum --batch 4096 --mesh 4  # 4 cards
+  python -m ilqg_mujoco_torch.cli pendulum --batch 8 --mesh 2 --device cpu
 
 The run is on the card; ``--device cpu`` is the only way to run on the
 CPU.  ``--batch B > 1`` starts B instances at qpos0 with qpos noise 0.01
@@ -19,6 +21,14 @@ drawn from a generator seeded with 0, without warm-in; ``--batch 1`` starts
 one warmed-in instance.  ``--resume`` takes its batch size from the file
 and continues where the checkpoint left off; a checkpoint counts the
 frames run since the start in ``extra/frames``.
+
+``--mesh N`` splits the batch over N ranks, one process per card
+(``cuda:0`` to ``cuda:N-1`` over nccl; with ``--device cpu``, N gloo
+ranks on the CPU): rank r runs the batched MPC over rows [r B/N,
+(r+1) B/N) of the same start.  Rank 0 prints the lines for the whole batch
+(env-frames/s over the slowest rank's seconds) and writes ``--out`` and
+``--checkpoint`` from the gathered batch, with a one-process run's keys;
+``--resume`` splits the file's batch.
 """
 
 from __future__ import annotations
@@ -31,7 +41,9 @@ import torch
 
 from . import ilqr, mpc
 from .models import envs
+from .kernels import riccati
 from .parallel import batch as pbatch
+from .parallel import distributed
 from .physics.model import resolve_device
 from .utils import checkpoint, profiling
 
@@ -56,6 +68,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=None,
                     help="independent instances (default 1, or the "
                          "--resume file's)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="split the batch over N ranks, one process per "
+                         "card (gloo ranks on the CPU with --device cpu; "
+                         "requires --batch > 1)")
     ap.add_argument("--out", type=str, default=None)
     ap.add_argument("--checkpoint", type=str, default=None,
                     help="write (env state, solver state) npz after the run")
@@ -121,6 +137,8 @@ def main(argv=None) -> None:
           f"backward={cfg.backward} N={cfg.horizon} iters={cfg.iterations} "
           f"device={_device_name(dev)} dtype={str(dtype).split('.')[-1]}")
 
+    if args.mesh:
+        return _run_mesh(ap, args, dev)
     done = 0
     if args.resume:
         x0, sol0, extra = checkpoint.load(args.resume, dev, dtype)
@@ -155,7 +173,11 @@ def main(argv=None) -> None:
 
     with timer.phase("mpc") as box:
         out = mpc.run(env, args.frames, x0=x0, sol0=sol0)
-    dt = box["seconds"]
+    _report(args, B, done, box["seconds"], out)
+
+
+def _report(args, B, done, dt, out: mpc.MPCOut) -> None:
+    """Print the run's lines and write ``--checkpoint`` and ``--out``."""
     print(f"{args.frames} MPC frames in {dt:.2f}s (B={B})")
     if B > 1:
         print(f"{args.frames} frames x {B} instances: {dt:.2f}s "
@@ -183,6 +205,74 @@ def main(argv=None) -> None:
             np.savez(args.out, qpos=np_(out.final_state.qpos),
                      costs=np_(out.step_cost.T))
         print("wrote", args.out)
+
+
+def _run_mesh(ap, args, dev) -> None:
+    """``--mesh N``: check the batch, then run ``_mesh_rank`` on N ranks."""
+    if args.mesh < 0:
+        ap.error("--mesh takes a number of ranks (0: one process)")
+    if args.solve_only:
+        ap.error("--mesh runs the batched MPC; it takes no --solve-only")
+    if dev.type == "cuda" and dev.index is not None:
+        ap.error("--mesh gives rank r the card cuda:r; pass --device cuda")
+    B = args.batch
+    if args.resume:
+        with np.load(args.resume) as z:
+            mu = z["sol/mu"]
+        n = mu.shape[0] if mu.ndim else 1
+        if B is not None and B != n:
+            ap.error(f"--batch {B} does not match the {n} instance(s) of "
+                     f"{args.resume}")
+        B = n
+    if B is None or B < 2:
+        ap.error("--mesh requires --batch > 1")
+    if B % args.mesh:
+        ap.error(f"--mesh {args.mesh} does not divide the batch of {B}")
+    print(f"mesh: {args.mesh} ranks, {B // args.mesh} instances each, "
+          f"{'nccl, one card each' if dev.type == 'cuda' else 'gloo'}")
+    distributed.launch(_mesh_rank, args.mesh, args, B,
+                       device=None if dev.type == "cuda" else "cpu")
+
+
+def _mesh_rank(mesh: pbatch.Mesh, args, B: int) -> None:
+    """One rank of ``--mesh``: the batched MPC over its block; rank 0
+    prints and writes the whole batch's results."""
+    env = _env(args)
+    dtype = torch.float64 if args.x64 else torch.float32
+    done = 0
+    if args.resume:
+        x0, sol0, extra = checkpoint.load(args.resume, "cpu", dtype)
+        t0 = float(x0.time[0])
+        x0, sol0 = pbatch.shard_batch((x0, sol0), mesh)
+        done = int(extra.get("frames", 0))
+        if mesh.rank == 0:
+            print(f"resumed from {args.resume} (t={t0:.3f}, B={B}, frames "
+                  f"so far {done})")
+    else:
+        gen = torch.Generator().manual_seed(NOISE_SEED)
+        x0, sol0 = pbatch.init_batched(env, B, QPOS_NOISE, generator=gen,
+                                       dtype=dtype, mesh=mesh)
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    riccati.LAUNCHES = 0
+    with profiling.Timer(mesh.device).phase("mpc") as box:
+        out = mpc.run(env, args.frames, x0=x0, sol0=sol0)
+    peak = torch.cuda.max_memory_allocated(mesh.device) if cuda else 0
+    stats = torch.tensor([[box["seconds"], riccati.LAUNCHES, peak / 2 ** 30]],
+                         dtype=torch.float64, device=mesh.device)
+    stats, final_state, final_sol, step_cost = distributed.gather_batch(
+        (stats, out.final_state, out.final_sol, out.step_cost), mesh)
+    if mesh.rank != 0:
+        return
+    n = B // mesh.world
+    for r, (sec, launches, gib) in enumerate(stats.tolist()):
+        where = _device_name(torch.device("cuda", r)) if cuda else "cpu"
+        print(f"rank {r}: {where}, rows [{r * n}, {(r + 1) * n}), "
+              f"{sec:.2f}s, {int(launches)} Riccati launches"
+              + (f", peak {gib:.2f} GiB" if cuda else ""))
+    _report(args, B, done, float(stats[:, 0].max()),
+            mpc.MPCOut(None, None, None, step_cost, final_state, final_sol))
 
 
 if __name__ == "__main__":

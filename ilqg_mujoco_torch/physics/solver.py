@@ -189,22 +189,33 @@ class _GraphedStep:
     """One CG iteration captured as a CUDA graph over static buffers: a
     replay launches the ~200 kernels of an iteration at once, where the
     eager loop pays the host's launch cost for each.  The replay runs the
-    same kernels on the same values, so the result is the eager one."""
+    same kernels on the same values, so the result is the eager one.
+
+    The capture runs under the tensors' own device, on a side stream made
+    there: a capture on another device's streams would record nothing, and
+    each replay would leave the carry as it was.  :meth:`replay` switches
+    to that device as well."""
 
     def __init__(self, c, carry, tolerance, ls_iterations):
+        self.device = carry[0].device
         self.c = tuple(torch.empty_like(t) for t in c)
         self.carry = tuple(torch.empty_like(t) for t in carry)
         self.args = (tolerance, ls_iterations)
         self.load(c, carry)       # the warm-up runs on real values
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):       # warm-up before the capture
-            for _ in range(2):
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):       # warm-up before the capture
+                for _ in range(2):
+                    self._run()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side):
                 self._run()
-        torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self._run()
+
+    def replay(self):
+        with torch.cuda.device(self.device):
+            self.graph.replay()
 
     def _run(self):
         for dst, src in zip(self.carry, _cg_step(self.c, self.carry,
@@ -265,11 +276,17 @@ _GRAPHS = _GraphCache(MAX_GRAPHS)
 
 def clear_graphs():
     """Drop every captured step and release the allocator's cached blocks
-    on the card (for a caller switching to other shapes, or retrying after
-    running out of memory)."""
+    on the current card and on every card that held a captured step (for
+    a caller switching to other shapes, or retrying after running out of
+    memory)."""
+    devices = {dev for key in _GRAPHS.keys for *_, dev in key[0]
+               if dev.startswith("cuda")}
     _GRAPHS.clear()
     if torch.cuda.is_initialized():
         torch.cuda.empty_cache()
+        for dev in devices:
+            with torch.cuda.device(dev):
+                torch.cuda.empty_cache()
 
 
 def _solve_cg(M, Mfac, qacc_smooth, J, D, aref, warmstart,
@@ -294,7 +311,7 @@ def _solve_cg(M, Mfac, qacc_smooth, J, D, aref, warmstart,
         if tolerance != 0.0 and bool(carry[5].all()):
             break
         if x0.is_cuda:
-            graphed.graph.replay()
+            graphed.replay()
         else:
             carry = _cg_step(c, carry, tolerance, ls_iterations)
     return carry[0].clone(), carry[4].clone()

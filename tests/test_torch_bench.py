@@ -14,13 +14,15 @@ JAX package's ``bench.py``, on the CPU.
 - Backoff: an out-of-memory error at B retries at B/2 after
   ``solver.clear_graphs``; any other error propagates; a run where no
   batch fits prints the zero line and returns 1.
-- One real run: the cart-pole compat+fd at B=2, REPS=2, TRIALS=1.
+- One real run: the cart-pole compat+fd at B=2, REPS=2, TRIALS=1, its
+  solver cut to N=6 and 3 iterations.
 
 ``bench.py`` switches on JAX's persistent compilation cache when it is
 imported; the fixture switches it off again before anything compiles,
 since this process's tests compile fresh.
 """
 
+import dataclasses
 import importlib.util
 import json
 import pathlib
@@ -35,6 +37,7 @@ import torch
 
 from ilqg_mujoco_torch import bench
 from ilqg_mujoco_torch.kernels import riccati
+from ilqg_mujoco_torch.models import envs
 from ilqg_mujoco_torch.physics import solver
 from ilqg_mujoco_tpu.models import envs as jenvs
 
@@ -266,6 +269,13 @@ def test_real_run_cartpole_compat(monkeypatch, capsys):
                  ("ILQG_BENCH_BATCH", "2"), ("ILQG_BENCH_REPS", "2"),
                  ("ILQG_BENCH_TRIALS", "1")):
         monkeypatch.setenv(k, v)
+    make = envs.make
+
+    def cut(*a, **kw):
+        env = make(*a, **kw)
+        return dataclasses.replace(env, ilqr=dataclasses.replace(
+            env.ilqr, horizon=6, iterations=3))
+    monkeypatch.setattr(envs, "make", cut)
     before = riccati.LAUNCHES
     rc, line = _run_main(lambda: bench.main(device="cpu"), capsys)
     assert rc == 0 and riccati.LAUNCHES == before     # the plain version

@@ -6,7 +6,9 @@ captured again).  The inputs are hopper states in contact.  Tolerance
 rtol 1e-9 / atol 1e-10 on qacc, and the same iteration count per instance:
 the same float64 operations on two devices.  The cache of captured steps
 is a bounded LRU: a shape evicted and captured again gives the same bits.
-Skips without a card; on the
+With two cards, a solve on the second while the first is current gives
+the first one's bits (its graph is captured on its own card).  Skips
+without a card; on the
 card, where JAX may be missing,
 
     python -m pytest tests/test_torch_cuda_solver.py -m cuda --noconftest
@@ -72,3 +74,21 @@ def test_graph_cache_is_bounded_and_eviction_keeps_bits(monkeypatch):
     assert torch.equal(x0, x3) and torch.equal(it0, it3)
     solver.clear_graphs()
     assert not solver._GRAPHS.steps
+
+
+@pytest.mark.cuda
+def test_graphed_cg_on_a_second_card():
+    """A solve on cuda:1 while cuda:0 is current captures and replays its
+    graph on cuda:1: the bits of the same solve on cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    args = _problems(0)
+    with torch.cuda.device(0):
+        x0, it0 = solver._solve_cg(*(a.to("cuda:0") for a in args), 30, 0.0,
+                                   16)
+        x1, it1 = solver._solve_cg(*(a.to("cuda:1") for a in args), 30, 0.0,
+                                   16)
+    assert x1.device == torch.device("cuda:1")
+    assert torch.equal(it1.cpu(), it0.cpu())
+    assert torch.equal(x1.cpu(), x0.cpu())
+    solver.clear_graphs()

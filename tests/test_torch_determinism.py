@@ -1,8 +1,11 @@
 """PyTorch port, bitwise determinism on the CPU: the counterparts of
 tests/test_determinism.py.  The same inputs through the same code must
 give the same bits, run after run: a cart-pole compat solve (trace,
-trajectory, K and k), and a hopper contact step after 300 steps from rest
-(qpos, qvel, qacc).  ``chip_smoke.py`` checks the same on the card."""
+trajectory, K and k; N=10, 5 iterations), and a hopper contact step after
+300 steps from rest (qpos, qvel, qacc).  ``chip_smoke.py`` checks the same
+on the card."""
+
+import dataclasses
 
 import pytest
 import torch
@@ -25,6 +28,8 @@ def _one_thread():
 
 def test_solve_bitwise_deterministic():
     env = envs.pendulum()
+    env = dataclasses.replace(env, ilqr=dataclasses.replace(
+        env.ilqr, horizon=10, iterations=5))
     s0, sol0 = mpc.init(env, device="cpu")
     sol1, t1 = ilqr.solve(env.model, env.cost_fn, s0, sol0, env.ilqr)
     sol2, t2 = ilqr.solve(env.model, env.cost_fn, s0, sol0, env.ilqr)

@@ -140,12 +140,12 @@ def test_fall_matches_mujoco(models):
 
 
 def test_cut_solve_descends():
-    """3 tassa+ad iterations of the standing humanoid over 8 knots, with
+    """3 tassa+ad iterations of the standing humanoid over 4 knots, with
     the env's value scaling and reg_init: a finite trace that falls at
     every accepted step and ends strictly lower."""
     env = envs.make("humanoid")
     env = dataclasses.replace(
-        env, ilqr=dataclasses.replace(env.ilqr, horizon=8, iterations=3,
+        env, ilqr=dataclasses.replace(env.ilqr, horizon=4, iterations=3,
                                       alphas=(1.0, 0.3, 0.05)))
     s0, sol0 = mpc.init(env, device="cpu")
     sol, trace = ilqr.solve(env.model, env.cost_fn, s0, sol0, env.ilqr)

@@ -16,10 +16,11 @@ from ilqg_mujoco_torch import bench, ilqr, live_view, mpc
 from ilqg_mujoco_torch.kernels import riccati
 from ilqg_mujoco_torch.models import envs
 from ilqg_mujoco_torch.ops.linearize import LinearizeConfig
-from ilqg_mujoco_torch.parallel import batch
+from ilqg_mujoco_torch.parallel import batch, distributed
 from ilqg_mujoco_torch.physics import forward
 from ilqg_mujoco_torch.physics.model import make_state
-from ilqg_mujoco_torch.tools import humanoid_balance, perf_breakdown
+from ilqg_mujoco_torch.tools import (distributed_check, humanoid_balance,
+                                     perf_breakdown, weak_scaling)
 from ilqg_mujoco_torch.utils import checkpoint, convert, frames, profiling
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -88,7 +89,12 @@ def test_entry_points_without_device_need_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         profiling.device_line()
     for main in (bench.main, perf_breakdown.main,
-                 lambda: humanoid_balance.main([str(tmp_path / "h.npz")])):
+                 lambda: humanoid_balance.main([str(tmp_path / "h.npz")]),
+                 batch.make_mesh,
+                 lambda: distributed.launch(distributed_check.rank_mean, 1,
+                                            torch.zeros(2)),
+                 lambda: distributed_check.main(["--nprocs", "1"]),
+                 lambda: weak_scaling.main([])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main()
     assert not (tmp_path / "h.npz").exists()

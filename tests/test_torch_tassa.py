@@ -176,7 +176,7 @@ def test_assoc_solve_descends_like_sequential():
     path while mu stays small (rtol 1e-4, as test_assoc_riccati.py), and
     descend."""
     env = envs.pendulum("tassa", "ad")
-    cfg_seq = dataclasses.replace(env.ilqr, horizon=40, iterations=6)
+    cfg_seq = dataclasses.replace(env.ilqr, horizon=40, iterations=4)
     cfg_par = dataclasses.replace(cfg_seq, backward="assoc")
     env = dataclasses.replace(env, ilqr=cfg_seq)
     s0, sol0 = mpc.init(env, device="cpu")

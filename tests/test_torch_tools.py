@@ -11,6 +11,7 @@ with a stand-in MPC step that drops the torso, which must abort the run
 and write ``.failed.npz``."""
 
 import ast
+import dataclasses
 import json
 import pathlib
 
@@ -85,9 +86,18 @@ def knobs(monkeypatch):
     return set_
 
 
-def test_perf_breakdown_line(knobs, capsys):
+def test_perf_breakdown_line(knobs, capsys, monkeypatch):
+    """The cart-pole compat+fd at B=2, its solver cut to N=6 and 3
+    iterations."""
     knobs(ILQG_BENCH_ENV="pendulum", ILQG_BENCH_MODE="compat",
           ILQG_BENCH_ENGINE="fd", ILQG_BENCH_BATCH=2, ILQG_BENCH_REPS=1)
+    make = envs.make
+
+    def cut(*a, **kw):
+        env = make(*a, **kw)
+        return dataclasses.replace(env, ilqr=dataclasses.replace(
+            env.ilqr, horizon=6, iterations=3))
+    monkeypatch.setattr(envs, "make", cut)
     before = riccati.LAUNCHES
     assert perf_breakdown.main(device="cpu") == 0
     assert riccati.LAUNCHES == before       # the plain version on the CPU
@@ -97,7 +107,7 @@ def test_perf_breakdown_line(knobs, capsys):
     assert (line["env"], line["batch"], line["mode"], line["engine"]) == (
         "pendulum", 2, "compat", "fd")
     assert (line["horizon"], line["nv"], line["nu"], line["nefc"]) == (
-        20, 2, 1, 4)
+        6, 2, 1, 4)
     assert line["device"] == "cpu"
     for k in ("ms_linearize", "ms_backward", "ms_rollout", "ms_linesearch",
               "ms_full_iteration", "ilqr_iters_per_s"):
@@ -105,7 +115,7 @@ def test_perf_breakdown_line(knobs, capsys):
     # the Timer's table names every phase
     table = "\n".join(out[:-1])
     for name in ("linearize", "backward", "rollout_x1", "linesearch_x6",
-                 "full_solve_10it"):
+                 "full_solve_3it"):
         assert name in table
 
 
