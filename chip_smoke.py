@@ -28,16 +28,16 @@ Phases, each of which raises on failure:
    iteration on the card and on the CPU must select the same alpha at
    every iteration and match the main path's trace, controls, gains and
    mu;
-7. hopper tassa+ad: the batched hopper iLQG solve (N=40, 10 iterations)
+7. hopper tassa+ad: the batched hopper iLQG solve (N=40, 3 iterations)
    and 1 closed-loop MPC frame at B=1024 in float64 through the same
    entry points, with contacts and the Euler integrator.  Every trace must
    be finite and monotone, and the mean cost must fall; the solve is
    timed, one iteration split, its CUDA kernels counted and the peak
-   memory read.  Instances 0..7, iterated on the card and on the CPU, must
+   memory read.  Instances 0..3, iterated on the card and on the CPU, must
    select the same alpha at every iteration, with traces and gains within
    1e-9 relative;
 8. hopper compat+fd: the batched compat solve with the reference's
-   transposed-A quirk (N=40, 10 iterations) and 1 MPC frame at B=1024,
+   transposed-A quirk (N=40, 3 iterations) and 1 MPC frame at B=1024,
    its split, kernel count, peak memory and the share of instances that
    end finite (compat has no linesearch: a noisy instance may diverge, as
    the reference's would).  Instances 0..7 solved alone (B=8) on the card
@@ -52,21 +52,21 @@ Phases, each of which raises on failure:
    MPC frame at B=1024, checked and reported as the hopper's tassa path,
    with instances 0..7 iterated on the card and on the CPU;
 10. humanoid tassa+ad: the full humanoid (nq 28, nv 27, nu 21, 161 contact
-   pairs, 424 constraint rows per state; N=30, 5 iterations, value
+   pairs, 424 constraint rows per state; N=30, 2 iterations, value
    scaling, reg_init 1e-2) at B=16 and 1 MPC frame, the same checks with
-   instances 0..1 on the CPU, the share of one rollout step spent in
+   instance 0 on the CPU, the share of one rollout step spent in
    ``collide``, and a second solve that must repeat the first bit for bit.
    Neither new path launches the Riccati kernel (nu = 2 and 21);
-11. determinism: at B=16 two cart-pole compat solves (trace, trajectory,
-   K, k) and two hopper contact steps after 300 steps from rest (qpos,
-   qvel, qacc) must be bitwise equal;
+11. determinism: at B=16 two cart-pole compat solves (5 iterations;
+   trace, trajectory, K, k) and two hopper contact steps after 300 steps
+   from rest (qpos, qvel, qacc) must be bitwise equal;
 12. entry points: the port's CLI (``python -m ilqg_mujoco_torch.cli``,
-   run in-process through ``cli.main``) at B=4096 in float64 (2 MPC
-   frames, with --checkpoint and --out) and float32 (1 frame), which must
+   run in-process through ``cli.main``) at B=4096 in float64 (1 MPC
+   frame, with --checkpoint and --out) and float32 (1 frame), which must
    launch the Riccati kernel frames x iterations times and give finite
    costs, with env-frames/s and the peak memory printed; resume against a
    straight run at B=16 (4 frames, against 2 and 2 resumed), whose
-   checkpoints must be bitwise equal; the live loop at B=1 (3 frames, 30
+   checkpoints must be bitwise equal; the live loop at B=1 (2 frames, 20
    launches), each frame's seconds against the 16.7 ms of a 60 fps frame;
    ``profiling.Timer`` around a ~50 ms ``torch.cuda._sleep``, which must
    read at least 90% of the host's synchronised clock; and
@@ -82,8 +82,8 @@ Phases, each of which raises on failure:
    ``tools.perf_breakdown`` on the same path at REPS=1, whose ``backward``
    phase runs the kernel (warm-up and one rep each launch it once and the
    10-iteration solve 10 times: 22); and ``tools.humanoid_balance`` at its
-   defaults but 2 frames, whose summary must be finite.  Each tool's
-   output is printed before the last line;
+   defaults but 1 frame, 3 iterations and N=15, whose summary must be
+   finite.  Each tool's output is printed before the last line;
 14. data parallel: the main path's solve and MPC frame at the same B,
    seed and width, split over ranks (``parallel/distributed.launch``, one
    process each, driven through ``tools/distributed_check``): (a)
@@ -100,7 +100,20 @@ Phases, each of which raises on failure:
    CG's graphs are captured on their tensors' card), and
    ``clear_graphs`` must release ``cuda:1``'s cache too; with one card a
    line says so;
-15. kernels: each CUDA kernel against its plain PyTorch version on the
+15. measurement tools: ``tools.kernel_bench`` at float64 B=4096 and
+   float32 B=8192 (the kernel, ``ilqr.backward_pass_compat`` and the
+   plain version on the same inputs, their agreement, float64 held to the
+   golden tolerances, and the bound); ``tools.roofline`` of the main
+   path's solve (B=4096, N=20, 10 iterations; REPS=1, TRIALS=1), whose
+   FLOPs and bytes must be positive, whose share of the bound must lie in
+   (0, 1], and whose counted Riccati launches per solve (10) times its
+   solves must equal ``riccati.LAUNCHES``' increase over the run; and a
+   two-row ``tools.bsweep`` of the cart-pole compat+fd (B=256 and 512,
+   REPS=2, TRIALS=1), each row the bench in a fresh process on the card,
+   which must both run and report their peak memory.  The Riccati
+   launches of kernel_bench and roofline are counted from 0 and must be
+   positive;
+16. kernels: each CUDA kernel against its plain PyTorch version on the
    card at the main path's shapes (and ragged batches), in float64 and
    float32.  The Riccati kernel is also held to its plain version on
    seeded inputs for every even n up to riccati.MAX_N at Bt in (5, 257),
@@ -110,7 +123,9 @@ Phases, each of which raises on failure:
    (launches replayed from a CUDA graph, so the host's launch cost is not
    timed), and ``ms_cold`` L2 cold at B=4096 (a 128 MB buffer written
    before each launch, each launch between its own events), beside its
-   memory/compute bound and the plain version's time.  The build phase
+   memory/compute bound, the plain version's time and the general
+   recursion's (``ilqr.backward_pass_compat`` on the same linearization,
+   ``general_recursion_ms``, an eager loop of 50 calls).  The build phase
    gates the compiler's report: no spills in the float64 kernel at n = 4
    and 8.
 
@@ -131,6 +146,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import pathlib
 import re
@@ -163,8 +179,22 @@ SEED = 0
 FRAMES = 1       # closed-loop MPC frames after each path's solve
 CHECK_B = 8
 # the humanoid's CPU check: the CPU's ad pass carries a per-lane J of
-# 424 x 27 float64 over every instance's 31 x 75 lanes
-HUMANOID_CHECK_B = 2
+# 424 x 27 float64 over every instance's 31 x 75 lanes.  To fit phase 15
+# in the time limit on a slow host, the depth of earlier phases was cut:
+# this check and the hopper tassa's (from 2 and 8 instances), the live
+# loop's and humanoid_balance's frames (from 3 and 2), humanoid_balance's
+# iterations and horizon (from 5 and 30), and the solver iterations of
+# the hopper's and the humanoid's paths and of the determinism phase's
+# cart-pole solves (from 10, 5 and 10).
+HUMANOID_CHECK_B = 1
+HOPPER_TASSA_CHECK_B = 4
+LIVE_FRAMES = 2
+BALANCE_FRAMES = 1
+BALANCE_ITERS = 3
+BALANCE_HORIZON = 15
+HOPPER_ITERS = 3
+HUMANOID_ITERS = 2
+DETERMINISM_ITERS = 5
 # card against CPU: {name: (rtol, atol, atol as a share of the largest
 # |value|)}
 CARTPOLE_TASSA_TOLS = dict(trace=(1e-9, 0.0, 0.0), ctrl=(1e-6, 1e-9, 0.0),
@@ -175,17 +205,15 @@ CARTPOLE_TASSA_TOLS = dict(trace=(1e-9, 0.0, 0.0), ctrl=(1e-6, 1e-9, 0.0),
 HOPPER_TASSA_TOLS = dict(trace=(1e-9, 0.0, 0.0), ctrl=(1e-9, 0.0, 1e-9),
                          K=(1e-9, 0.0, 1e-9), k=(1e-9, 0.0, 1e-9),
                          mu=(1e-12, 0.0, 0.0))
-# H100 SXM data-sheet peaks at 700 W: HBM bandwidth, float64 and float32
-# rates outside the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOP_S = {torch.float64: 34e12, torch.float32: 67e12}
 # the Riccati kernel's correctness sweep: n = 2 nv, ragged batches, horizon
 SWEEP_N = tuple(range(2, riccati.MAX_N + 1, 2))
 SWEEP_BT = (5, 257)
 SWEEP_HORIZON = 20
 NO_SPILL_N = (4, 8)          # float64 instantiations that must not spill
-L2_FLUSH_BYTES = 128 * 2 ** 20
 DP_TIMEOUT = 300             # seconds for the ranks of one run to end
+KERNEL_BENCH_F32_B = 8192    # tools/pallas_bench.py's batch
+KERNEL_BENCH_REPS = 50
+BSWEEP_B = (256, 512)
 
 
 def sync_time(fn):
@@ -351,7 +379,8 @@ def print_kernel_count(fn):
 
 def phase_split(env, main):
     """One iteration of the solve from the main path's start, phase by
-    phase; returns that iteration's linearization for the kernel phase."""
+    phase; returns that iteration's trajectory and linearization for the
+    kernel phase."""
     m, cfg = env.model, env.ilqr
     states, sols = main["states"], main["sols"]
     traj, t_fwd = sync_time(lambda: ilqr.forward_pass(m, states, sols, cfg))
@@ -366,7 +395,7 @@ def phase_split(env, main):
 
     print_kernel_count(
         lambda: ilqr.iterate_compat(m, env.cost_fn, states, sols, cfg))
-    return kernel_args(env, traj, lin)
+    return traj, lin
 
 
 def kernel_args(env, traj, lin):
@@ -614,9 +643,9 @@ def check_solve_repeats(env, tassa):
 
 def phase_humanoid(B, seed, device):
     """The full humanoid's tassa+ad path at B, its checks against the CPU
-    on instances 0..1, the share of a rollout step in ``collide``, and a
+    on instance 0, the share of a rollout step in ``collide``, and a
     second solve that must repeat the first."""
-    env = envs.make("humanoid")
+    env = with_iterations(envs.make("humanoid"), HUMANOID_ITERS)
     tassa = phase_tassa(env, "humanoid", B, seed, device)
     collide_share(env, tassa)
     check_solve_repeats(env, tassa)
@@ -628,7 +657,7 @@ def phase_determinism(B, seed, device):
     hopper contact steps from the same state 300 steps after rest, must be
     bitwise equal (the card's counterpart of
     tests/test_torch_determinism.py)."""
-    env = envs.pendulum("compat", "fd")
+    env = with_iterations(envs.pendulum("compat", "fd"), DETERMINISM_ITERS)
     gen = torch.Generator().manual_seed(seed)
     states, sols = batch.init_batched(env, B, qpos_noise=0.01, generator=gen,
                                       device=device, dtype=torch.float64)
@@ -671,7 +700,7 @@ def phase_entry_points(workdir, B, seed, device):
 
     full = ["pendulum", "--mode", "compat", "--engine", "fd", "--batch",
             str(B), "--out", str(d / "out.npz")]
-    for dtype, frames_, extra in ((np.float64, 2, ["--x64", "--checkpoint",
+    for dtype, frames_, extra in ((np.float64, 1, ["--x64", "--checkpoint",
                                                    str(d / "ck.npz")]),
                                   (np.float32, 1, [])):
         label = f"cli {np.dtype(dtype).name} B={B}"
@@ -718,14 +747,16 @@ def phase_entry_points(workdir, B, seed, device):
 
     # the live loop at B=1, headless
     riccati.LAUNCHES = 0
-    hist, seconds = live_view.live_loop("pendulum", frames=3, fps=0.0,
-                                        headless=True, device=device)
+    hist, seconds = live_view.live_loop("pendulum", frames=LIVE_FRAMES,
+                                        fps=0.0, headless=True,
+                                        device=device)
     torch.cuda.synchronize()
     launches["live loop B=1"] = riccati.LAUNCHES
-    if riccati.LAUNCHES != 3 * iters:
+    if riccati.LAUNCHES != LIVE_FRAMES * iters:
         raise AssertionError(f"live loop: {riccati.LAUNCHES} Riccati "
-                             f"launches, expected {3 * iters}")
-    if hist.shape != (3, env.model.nq) or not np.isfinite(hist).all():
+                             f"launches, expected {LIVE_FRAMES * iters}")
+    if hist.shape != (LIVE_FRAMES, env.model.nq) or \
+            not np.isfinite(hist).all():
         raise AssertionError(f"live loop: history {hist.shape} not finite")
     frame_budget = 1.0 / 60.0
     print("entry points: live loop at B=1 (compat+fd, N=20, 10 "
@@ -862,11 +893,13 @@ def phase_bench_and_tools(workdir, B, device):
           f"{pb_launches} Riccati launches")
 
     out = pathlib.Path(workdir) / "humanoid_balance.npz"
-    frames_ = 2
+    frames_ = BALANCE_FRAMES
     rc, last, _, dt = run_tool(
         "humanoid_balance",
         lambda: humanoid_balance.main([str(out)], device),
-        {"ILQG_HUM_FRAMES": str(frames_)})
+        {"ILQG_HUM_FRAMES": str(frames_),
+         "ILQG_HUM_ITERS": str(BALANCE_ITERS),
+         "ILQG_HUM_HORIZON": str(BALANCE_HORIZON)})
     written = pathlib.Path(last.removeprefix("wrote "))
     z = np.load(written)
     summary = json.loads(str(z["summary"]))
@@ -975,13 +1008,20 @@ def phase_data_parallel(main, B, seed):
     return launches
 
 
+def with_iterations(env, iterations):
+    """``env`` with its solver cut to ``iterations``."""
+    return dataclasses.replace(
+        env, ilqr=dataclasses.replace(env.ilqr, iterations=iterations))
+
+
 def hopper_compat_env():
     """The hopper golden configuration: compat+fd with the reference's
-    transposed-A quirk (tests/test_golden_hopper.py)."""
+    transposed-A quirk (tests/test_golden_hopper.py), at HOPPER_ITERS."""
     env = envs.make("hopper", mode="compat", engine="fd")
     lin = dataclasses.replace(env.ilqr.lin, compat_transpose_A=True)
     return dataclasses.replace(
-        env, ilqr=dataclasses.replace(env.ilqr, lin=lin))
+        env, ilqr=dataclasses.replace(env.ilqr, lin=lin,
+                                      iterations=HOPPER_ITERS))
 
 
 def phase_hopper_compat(B, seed, device):
@@ -1076,82 +1116,6 @@ def phase_hopper_compat(B, seed, device):
           "only")
 
 
-def time_cuda(fn, reps, warmup):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def capture(fn, calls):
-    """A CUDA graph of ``calls`` calls of ``fn`` (warmed on a side stream
-    first, as torch.cuda.graphs asks)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return graph
-
-
-def time_warm(fn, calls=50, replays=10):
-    """Device ms per call of ``fn``, its inputs warm in L2: ``calls`` calls
-    captured in one CUDA graph, replayed ``replays`` times between two
-    events, so the host's launch cost is not timed."""
-    graph = capture(fn, calls)
-    graph.replay()
-    return time_cuda(graph.replay, replays, 1) / calls
-
-
-def time_cold(fn, reps=30):
-    """Median device ms of one call of ``fn`` with L2 cold: before each call
-    a 128 MB buffer (over twice the 50 MB L2) is written, and each call,
-    replayed from a one-call CUDA graph, lies between its own events.  The
-    write keeps the card busy while the host enqueues the call."""
-    graph = capture(fn, 1)
-    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
-                        device="cuda")
-    events = []
-    for _ in range(reps):
-        flush.fill_(1.0)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in events)
-
-
-def riccati_bound_ms(args, dtype):
-    """Least time for the work on an H100 SXM: each input read once, each
-    output written once, over the HBM rate; the recursion's arithmetic
-    (4n^3 + 15n^2 + 14n + 10 operations per instance and step) over the
-    dtype's peak.  Returns (ms, 'bytes' | 'operations')."""
-    A, B = args[0], args[1]
-    Bt, N, n = B.shape[0], B.shape[1], B.shape[2]
-    elems = sum(x.numel() for x in args) + Bt * N * n + Bt * N  # + K, k
-    item = torch.finfo(dtype).bits // 8
-    t_bytes = elems * item / PEAK_BYTES_S
-    t_ops = Bt * N * (4 * n ** 3 + 15 * n ** 2 + 14 * n + 10) / \
-        PEAK_FLOP_S[dtype]
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 def random_riccati_args(Bt, N, n, seed, device):
     """Seeded inputs for the Riccati kernel at any n (no nu = 1 model but
     the cart-pole exists to draw them from): A = I + 0.05 randn, B small,
@@ -1166,18 +1130,6 @@ def random_riccati_args(Bt, N, n, seed, device):
     return [torch.tensor(x, device=device) for x in (A, B, gx, gu, diffs)]
 
 
-def riccati_tols(dtype, n, ref):
-    """(rtol, atol) of the kernel against its plain version.  float64:
-    tests/test_pallas_riccati.py's.  float32: 20 steps with mu=1000 cancel
-    about 3 of float32's 7 digits (rtol 1e-4, atol 1e-6 max|ref|); each
-    step's products sum n terms, and the plain version in float32 strayed
-    from float64 by up to 1.3e-7 max|ref| at n=2 and 7.4e-7 at n=32 on
-    random_riccati_args (a CPU run), so above n = 8 atol grows as n / 8."""
-    if dtype == torch.float64:
-        return 1e-9, 1e-11
-    return 1e-4, 1e-6 * float(ref.abs().max()) * max(1.0, n / 8)
-
-
 def check_riccati(args, mu, label):
     """The kernel against its plain version on ``args``; returns the
     largest absolute error of K and k."""
@@ -1186,12 +1138,22 @@ def check_riccati(args, mu, label):
     torch.cuda.synchronize()
     Kr, kr = riccati.backward_compat_batched_ref(*args, mu)
     return max(check_close(f"riccati {label} {dt} n={n} Bt={args[1].shape[0]}"
-                           f" {name}", got, ref, *riccati_tols(dt, n, ref))
+                           f" {name}", got, ref,
+                           *riccati.tolerances(dt, n, ref))
                for name, got, ref in (("K", K, Kr), ("k", k, kr)))
 
 
-def phase_kernels(env, args, launches, registers):
+def cast(traj, lin, dtype):
+    """The trajectory and linearization with their floating tensors in
+    ``dtype``."""
+    to = lambda x: x.to(dtype) if x.is_floating_point() else x
+    return traj.map(to), lin._replace(**{f: to(getattr(lin, f))
+                                         for f in lin._fields})
+
+
+def phase_kernels(env, traj, lin, launches, registers):
     mu = env.ilqr.mu
+    args = kernel_args(env, traj, lin)
     record = dict(name="riccati_compat", route="cuda",
                   source="ilqg_mujoco_torch/csrc/riccati_compat.cu",
                   replaces="ilqg_mujoco_tpu/experimental/pallas_riccati.py:199",
@@ -1211,17 +1173,22 @@ def phase_kernels(env, args, launches, registers):
                 for Bt in SWEEP_BT)
         b8 = [x[:CHECK_B] for x in full]
         launch = lambda a: lambda: riccati.backward_compat_batched(*a, mu)
-        ms = time_cuda(launch(full), 200, 10)
-        ms_graph = time_warm(launch(full))
-        ms_cold = time_cold(launch(full))
-        ms_b8 = time_warm(launch(b8))
-        plain_ms = time_cuda(
+        ms = profiling.time_cuda(launch(full), 200, 10)
+        ms_graph = profiling.time_warm(launch(full))
+        ms_cold = profiling.time_cold(launch(full))
+        ms_b8 = profiling.time_warm(launch(b8))
+        plain_ms = profiling.time_cuda(
             lambda: riccati.backward_compat_batched_ref(*full, mu), 100, 3)
-        plain_ms_b8 = time_cuda(
+        traj_dt, lin_dt = cast(traj, lin, dt)
+        general_ms = profiling.time_cuda(
+            lambda: ilqr.backward_pass_compat(env.model, traj_dt, lin_dt,
+                                              env.ilqr), 50, 3)
+        plain_ms_b8 = profiling.time_cuda(
             lambda: riccati.backward_compat_batched_ref(*b8, mu), 20, 2)
-        bound_ms, bound_by = riccati_bound_ms(full, dt)
-        bound_ms_b8, _ = riccati_bound_ms(b8, dt)
+        bound_ms, bound_by = riccati.bound_ms(full, dt)
+        bound_ms_b8, _ = riccati.bound_ms(b8, dt)
         per_dtype[dt] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                             general_recursion_ms=general_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              ms_graph=ms_graph, ms_cold=ms_cold, ms_b8=ms_b8,
                              plain_ms_b8=plain_ms_b8, bound_ms_b8=bound_ms_b8,
@@ -1229,7 +1196,8 @@ def phase_kernels(env, args, launches, registers):
         B = full[1].shape[0]
         print(f"riccati_compat {dt}: B={B} eager {ms:.4f} ms, L2 warm "
               f"(graph) {ms_graph:.4f} ms, L2 cold {ms_cold:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} ms; "
+              f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} ms, "
+              f"general recursion {general_ms:.3f} ms; "
               f"B={CHECK_B} warm (graph) {ms_b8:.4f} ms, bound "
               f"{bound_ms_b8:.6f} ms, plain {plain_ms_b8:.3f} ms; max abs err "
               f"{max(errs):.2e} over Bt in (B, 5, B+1)")
@@ -1239,6 +1207,94 @@ def phase_kernels(env, args, launches, registers):
     record.update(per_dtype[torch.float64], dtype="float64",
                   float32=per_dtype[torch.float32])
     return [record]
+
+
+def phase_measurement_tools(B, device):
+    """Phase 15: the kernel bench, the main path's roofline and a two-row
+    batch sweep; returns the kernel bench's lines and the Riccati launches
+    of the in-process tools."""
+    from ilqg_mujoco_torch.tools import bsweep, kernel_bench, roofline
+    riccati.LAUNCHES = 0
+    lines = [kernel_bench.bench_shape(b, dt, KERNEL_BENCH_REPS, device)
+             for b, dt in ((B, torch.float64),
+                           (KERNEL_BENCH_F32_B, torch.float32))]
+    kb_launches = riccati.LAUNCHES
+    if not kb_launches:
+        raise AssertionError("kernel_bench launched no Riccati kernel")
+    for line in lines:
+        a = line["agreement"]
+        times = [line[k] for k in ("kernel_ms", "kernel_ms_graph",
+                                   "general_recursion_ms", "plain_ms")]
+        if not all(math.isfinite(t) and t > 0 for t in times):
+            raise AssertionError(f"kernel_bench: bad times {line}")
+        print(f"measurement tools: kernel_bench {line['dtype']} "
+              f"B={line['batch']}: kernel {line['kernel_ms']:.4f} ms eager, "
+              f"{line['kernel_ms_graph']:.4f} ms L2 warm (graph); general "
+              f"recursion {line['general_recursion_ms']:.3f} ms (x"
+              f"{line['speedup_vs_general']:.1f}); plain "
+              f"{line['plain_ms']:.3f} ms; bound {line['bound_ms']:.4f} ms "
+              f"({line['bound_by']}); K against the general recursion "
+              f"relative to max|K|={a['scale_max_abs_K']:.2f}: median "
+              f"{a['median_rel']:.2e}, max {a['max_rel']:.2e}; kernel "
+              f"against plain {a['kernel_vs_plain_max_abs']:.2e} "
+              f"(within {a['within_tolerance']})")
+        print(f"  kernel_bench: {json.dumps(line)}")
+    print(f"measurement tools: kernel_bench {kb_launches} Riccati launches")
+
+    env = envs.pendulum("compat", "fd")
+    rc, last, rf_launches, dt = run_tool(
+        "roofline", lambda: roofline.main(device),
+        {"ILQG_BENCH_ENV": "pendulum", "ILQG_BENCH_MODE": "compat",
+         "ILQG_BENCH_ENGINE": "fd", "ILQG_BENCH_BATCH": str(B),
+         "ILQG_BENCH_REPS": "1", "ILQG_BENCH_TRIALS": "1",
+         "ILQG_BENCH_DTYPE": "float64"})
+    r = json.loads(last)
+    per = r["per_solve_call"]
+    counted = per["riccati_launches"]
+    if rc != 0 or not (per["flops"] > 0 and per["hbm_bytes_accessed"] > 0):
+        raise AssertionError(f"roofline: rc {rc}, line {last}")
+    if counted != env.ilqr.iterations or \
+            counted * r["solves"] != rf_launches:
+        raise AssertionError(f"roofline: {counted} Riccati launches counted "
+                             f"a solve over {r['solves']} solves, but "
+                             f"riccati.LAUNCHES rose by {rf_launches}")
+    if not 0 < r["share_of_bound"] <= 1:
+        raise AssertionError(f"roofline: share of the bound "
+                             f"{r['share_of_bound']}")
+    print(f"measurement tools: roofline of the main path, B={B}: "
+          f"{per['flops']:.4e} FLOPs, {per['hbm_bytes_accessed']:.4e} bytes "
+          f"(intensity {per['arithmetic_intensity_flop_per_byte']:.4f} "
+          f"FLOP/byte), {per['kernel_launches']} launches "
+          f"({per['launches_per_solver_iteration']:.1f} an iteration), "
+          f"{per['graph_replays']} CG graph replays; {r['bound_by']} bound "
+          f"{r['bound_s']:.4e} s against "
+          f"{r['measured']['time_per_call_s']:.3f} s: share "
+          f"{r['share_of_bound']:.3e}; Riccati launches counted "
+          f"{counted} a solve x {r['solves']} solves = LAUNCHES' increase "
+          f"{rf_launches} ({dt:.1f} s with set-up)")
+
+    buf = io.StringIO()
+    configs = [{"env": "pendulum", "mode": "compat", "engine": "fd",
+                "batch": b, "reps": 2, "trials": 1, "timeout": 300}
+               for b in BSWEEP_B]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bsweep.main(["--configs", json.dumps(configs)], device)
+    dt = time.perf_counter() - t0
+    rows = [json.loads(ln) for ln in buf.getvalue().splitlines()
+            if ln.startswith("{")]
+    for ln in buf.getvalue().splitlines():
+        if ln.strip():
+            print(f"  bsweep: {ln}")
+    if rc != 0 or len(rows) != len(BSWEEP_B) or any(
+            "error" in row or not row["value"] > 0 or not row["peak_gib"]
+            for row in rows):
+        raise AssertionError(f"bsweep: rc {rc}, rows {rows}")
+    print(f"measurement tools: bsweep {len(rows)} rows in fresh processes "
+          f"in {dt:.1f} s: " + ", ".join(
+              f"B={row['batch']} {row['value']} it/s, {row['peak_gib']} GiB"
+              for row in rows))
+    return lines, dict(kernel_bench=kb_launches, roofline=rf_launches)
 
 
 def main():
@@ -1254,7 +1310,7 @@ def main():
     mark("cart-pole compat+fd")
     env = envs.pendulum("compat", "fd")
     main_out = phase_main_path(env, B, SEED, "cuda")
-    args = phase_split(env, main_out)
+    traj, lin = phase_split(env, main_out)
     phase_cross_device(env, main_out)
     clear_graph_cache("cart-pole compat+fd")
     mark("cart-pole tassa+ad")
@@ -1264,8 +1320,9 @@ def main():
     clear_graph_cache("cart-pole tassa+ad")
     mark("hopper tassa+ad")
     phase_tassa_cross_device(
-        phase_tassa(envs.make("hopper"), "hopper tassa", HOPPER_B, SEED,
-                    "cuda"), HOPPER_TASSA_TOLS)
+        phase_tassa(with_iterations(envs.make("hopper"), HOPPER_ITERS),
+                    "hopper tassa", HOPPER_B, SEED,
+                    "cuda"), HOPPER_TASSA_TOLS, HOPPER_TASSA_CHECK_B)
     clear_graph_cache("hopper tassa+ad")
     mark("hopper compat+fd")
     phase_hopper_compat(HOPPER_B, SEED, "cuda")
@@ -1297,11 +1354,16 @@ def main():
     mark("data parallel")
     dp_launches = phase_data_parallel(main_out, B, SEED)
     clear_graph_cache("data parallel")
+    mark("measurement tools")
+    kb_lines, tool_launches = phase_measurement_tools(B, "cuda")
+    clear_graph_cache("measurement tools")
     mark("kernels")
-    kernels = phase_kernels(env, args, main_out["launches"], registers)
+    kernels = phase_kernels(env, traj, lin, main_out["launches"], registers)
     kernels[0]["entry_point_launches"] = entry_launches
     kernels[0]["bench_launches"] = bench_launches
     kernels[0]["data_parallel_launches"] = dp_launches
+    kernels[0]["measurement_tool_launches"] = tool_launches
+    kernels[0]["kernel_bench"] = kb_lines
     mark("done")
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

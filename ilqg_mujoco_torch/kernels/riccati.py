@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from . import _build
+from ..utils import profiling
 
 # launches of the CUDA kernel in this process; nothing else adds to it
 LAUNCHES = 0
@@ -58,6 +59,36 @@ def backward_compat_batched_ref(A, B, gx, gu, diffs, mu):
              + q + 2.0 * kt[:, None] * R[:, None] * Kt)
         Ks[t], ks[t] = Kt, kt
     return torch.stack(Ks, 1)[:, :, None, :], torch.stack(ks, 1)[:, :, None]
+
+
+def work(Bt, N, n, dtype):
+    """(operations, bytes) of one launch over Bt instances of N steps: the
+    recursion's arithmetic, 4n^3 + 15n^2 + 14n + 10 operations per instance
+    and step, and each input read once and each output written once."""
+    elems = Bt * (N * n * n + N * n + (N + 1) * n + N + N * n  # A B gx gu c
+                  + N * n + N)                                  # K k
+    ops = Bt * N * (4 * n ** 3 + 15 * n ** 2 + 14 * n + 10)
+    return ops, elems * (torch.finfo(dtype).bits // 8)
+
+
+def bound_ms(args, dtype):
+    """Least ms of one launch on ``args`` (the wrapper's A, B, gx, gu,
+    diffs) on an H100 SXM; returns (ms, 'bytes' | 'operations')."""
+    Bt, N, n = args[1].shape[:3]
+    s, by = profiling.bound_s(*work(Bt, N, n, dtype), dtype)
+    return 1e3 * s, by
+
+
+def tolerances(dtype, n, ref):
+    """(rtol, atol) of the kernel against its plain version.  float64:
+    tests/test_pallas_riccati.py's.  float32: 20 steps with mu=1000 cancel
+    about 3 of float32's 7 digits (rtol 1e-4, atol 1e-6 max|ref|); each
+    step's products sum n terms, and the plain version in float32 strayed
+    from float64 by up to 1.3e-7 max|ref| at n=2 and 7.4e-7 at n=32 on
+    seeded random inputs (a CPU run), so above n = 8 atol grows as n / 8."""
+    if dtype == torch.float64:
+        return 1e-9, 1e-11
+    return 1e-4, 1e-6 * float(ref.abs().max()) * max(1.0, n / 8)
 
 
 def _check(A, B, gx, gu, diffs):

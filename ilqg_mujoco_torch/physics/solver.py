@@ -21,7 +21,9 @@ Two modes, as in the reference:
 On the card each iteration is one replay of a CUDA graph captured once per
 shape (:class:`_GraphedStep`) and kept in a bounded LRU
 (:data:`MAX_GRAPHS`, :func:`clear_graphs`); on the CPU it runs eagerly.
-Both run the same operations on the same values.
+Both run the same operations on the same values.  The cache counts the
+replays of each shape, which no dispatch mode sees (``tools/roofline``
+counts a replay's work as one :func:`step_into` at its shape).
 
 The constraint Jacobian J is per instance, (..., nefc, nv), when the model
 has contacts, and one (nefc, nv) for the whole batch when it has limit
@@ -36,7 +38,7 @@ dual tensors the Function returns what ``_solve_cg`` returns, bit for bit.
 
 from __future__ import annotations
 
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -185,6 +187,13 @@ def _cg_step(c, carry, tolerance, ls_iterations):
             torch.where(active, done_new, done))
 
 
+def step_into(c, carry, tolerance, ls_iterations):
+    """One CG iteration written into the ``carry`` tensors: what a replay of
+    a captured step runs."""
+    for dst, src in zip(carry, _cg_step(c, carry, tolerance, ls_iterations)):
+        dst.copy_(src)
+
+
 class _GraphedStep:
     """One CG iteration captured as a CUDA graph over static buffers: a
     replay launches the ~200 kernels of an iteration at once, where the
@@ -218,9 +227,7 @@ class _GraphedStep:
             self.graph.replay()
 
     def _run(self):
-        for dst, src in zip(self.carry, _cg_step(self.c, self.carry,
-                                                 *self.args)):
-            dst.copy_(src)
+        step_into(self.c, self.carry, *self.args)
 
     def load(self, c, carry):
         for dst, src in zip(self.c + self.carry, tuple(c) + tuple(carry)):
@@ -233,42 +240,59 @@ class _GraphedStep:
 MAX_GRAPHS = 4
 
 
+def graph_key(c, carry, tolerance, ls_iterations):
+    """The cache's key of a CG step: (c's specs, carry's specs, tolerance,
+    ls_iterations), a spec (shape, dtype, device)."""
+    spec = lambda ts: tuple((tuple(t.shape), t.dtype, str(t.device))
+                            for t in ts)
+    return spec(c), spec(carry), tolerance, ls_iterations
+
+
 class _GraphCache:
     """The captured steps, least recently used first, at most ``size`` of
     them: an evicted step's graph and static buffers are dropped, and a
     later solve at its shape captures it again (the same kernels on the
-    same values, so the same bits).  ``keys`` holds every key captured
-    since the last :meth:`clear`, and ``captures`` counts the captures."""
+    same values, so the same bits).  Since the last :meth:`clear`, ``keys``
+    holds every key captured, ``captures`` counts the captures and
+    ``replays`` the replays by key (:func:`graph_key`).  ``capturing`` is
+    true while a step is loaded, warmed up and captured: set-up, not the
+    solve's work."""
 
     def __init__(self, size: int):
         self.size = size
         self.steps: OrderedDict = OrderedDict()
         self.keys: set = set()
         self.captures = 0
+        self.replays: Counter = Counter()
+        self.capturing = False
 
-    def get(self, c, carry, tolerance, ls_iterations) -> _GraphedStep:
+    def get(self, c, carry, tolerance, ls_iterations) -> tuple:
         """The captured step for these shapes, loaded with ``c`` and
-        ``carry`` (one per shape, dtype, device and solver setting)."""
-        key = (tuple((tuple(t.shape), t.dtype, str(t.device))
-                     for t in tuple(c) + tuple(carry)), tolerance,
-               ls_iterations)
+        ``carry`` (one per shape, dtype, device and solver setting), and
+        its key."""
+        key = graph_key(c, carry, tolerance, ls_iterations)
         if key in self.steps:
             self.steps.move_to_end(key)
         else:
             while len(self.steps) >= self.size:
                 self.steps.popitem(last=False)
-            self.steps[key] = _GraphedStep(c, carry, tolerance,
-                                           ls_iterations)
+            self.capturing = True
+            try:
+                self.steps[key] = _GraphedStep(c, carry, tolerance,
+                                               ls_iterations)
+            finally:
+                self.capturing = False
             self.keys.add(key)
             self.captures += 1
         step = self.steps[key]
         step.load(c, carry)       # the warm-up moved the carry
-        return step
+        return step, key
 
     def clear(self):
         self.steps.clear()
         self.keys.clear()
         self.captures = 0
+        self.replays.clear()
 
 
 _GRAPHS = _GraphCache(MAX_GRAPHS)
@@ -303,7 +327,7 @@ def _solve_cg(M, Mfac, qacc_smooth, J, D, aref, warmstart,
              torch.zeros(batch, dtype=x0.dtype, device=x0.device),
              torch.zeros(batch, dtype=torch.bool, device=x0.device))
     if x0.is_cuda:
-        graphed = _GRAPHS.get(c, carry, tolerance, ls_iterations)
+        graphed, key = _GRAPHS.get(c, carry, tolerance, ls_iterations)
         carry = graphed.carry
     for _ in range(iterations):
         # pinned mode (tolerance 0) runs every iteration, bit-reproducibly;
@@ -312,6 +336,7 @@ def _solve_cg(M, Mfac, qacc_smooth, J, D, aref, warmstart,
             break
         if x0.is_cuda:
             graphed.replay()
+            _GRAPHS.replays[key] += 1
         else:
             carry = _cg_step(c, carry, tolerance, ls_iterations)
     return carry[0].clone(), carry[4].clone()

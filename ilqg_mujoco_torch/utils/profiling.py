@@ -6,6 +6,10 @@ and the phase synchronizes on its end event when it exits, so the time
 covers all the work the phase enqueued.  On the CPU it is
 ``time.perf_counter``.  :func:`device_line` names the device a number was
 measured on.
+
+Also the card's timers of a single function (:func:`time_cuda`,
+:func:`time_warm`, :func:`time_cold`) and the H100's data-sheet peaks that
+a bound (:func:`bound_s`) divides the work by.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import json
 import pathlib
+import statistics
 import subprocess
 import time
 from typing import Dict
@@ -20,6 +25,12 @@ from typing import Dict
 import torch
 
 from ..physics.model import resolve_device
+
+# H100 SXM data-sheet peaks at 700 W: HBM bandwidth, float64 and float32
+# rates outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOP_S = {torch.float64: 34e12, torch.float32: 67e12}
+L2_FLUSH_BYTES = 128 * 2 ** 20      # over twice the H100's 50 MB L2
 
 
 class Timer:
@@ -111,3 +122,76 @@ def device_line(device=None) -> str:
 
 def throughput(n_items: int, seconds: float, unit: str = "items") -> str:
     return f"{n_items / seconds:,.0f} {unit}/s"
+
+
+def bound_s(flops: float, nbytes: float, dtype) -> tuple:
+    """Least seconds the work could take on an H100 SXM: the larger of the
+    bytes over the HBM rate and the operations over the dtype's peak.
+    Returns (seconds, 'bytes' | 'operations')."""
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = flops / PEAK_FLOP_S[dtype]
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def time_cuda(fn, reps, warmup):
+    """Device ms per call of ``fn``: ``warmup`` calls, then ``reps`` calls
+    between two CUDA events (the host's launch cost included where it
+    exceeds the device's time)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def capture(fn, calls):
+    """A CUDA graph of ``calls`` calls of ``fn`` (warmed on a side stream
+    first, as torch.cuda.graphs asks)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return graph
+
+
+def time_warm(fn, calls=50, replays=10):
+    """Device ms per call of ``fn``, its inputs warm in L2: ``calls`` calls
+    captured in one CUDA graph, replayed ``replays`` times between two
+    events, so the host's launch cost is not timed."""
+    graph = capture(fn, calls)
+    graph.replay()
+    return time_cuda(graph.replay, replays, 1) / calls
+
+
+def time_cold(fn, reps=30):
+    """Median device ms of one call of ``fn`` with L2 cold: before each call
+    a 128 MB buffer (over twice the 50 MB L2) is written, and each call,
+    replayed from a one-call CUDA graph, lies between its own events.  The
+    write keeps the card busy while the host enqueues the call."""
+    graph = capture(fn, 1)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    events = []
+    for _ in range(reps):
+        flush.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)

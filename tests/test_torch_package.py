@@ -19,8 +19,9 @@ from ilqg_mujoco_torch.ops.linearize import LinearizeConfig
 from ilqg_mujoco_torch.parallel import batch, distributed
 from ilqg_mujoco_torch.physics import forward
 from ilqg_mujoco_torch.physics.model import make_state
-from ilqg_mujoco_torch.tools import (distributed_check, humanoid_balance,
-                                     perf_breakdown, weak_scaling)
+from ilqg_mujoco_torch.tools import (bsweep, distributed_check,
+                                     humanoid_balance, kernel_bench,
+                                     perf_breakdown, roofline, weak_scaling)
 from ilqg_mujoco_torch.utils import checkpoint, convert, frames, profiling
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -94,7 +95,9 @@ def test_entry_points_without_device_need_cuda(tmp_path):
                  lambda: distributed.launch(distributed_check.rank_mean, 1,
                                             torch.zeros(2)),
                  lambda: distributed_check.main(["--nprocs", "1"]),
-                 lambda: weak_scaling.main([])):
+                 lambda: weak_scaling.main([]),
+                 kernel_bench.main, roofline.main,
+                 lambda: bsweep.main(["--configs", "[{\"batch\": 2}]"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main()
     assert not (tmp_path / "h.npz").exists()
