@@ -56,7 +56,16 @@ Phases, each of which raises on failure:
    scaling, reg_init 1e-2) at B=16 and 1 MPC frame, the same checks with
    instance 0 on the CPU, the share of one rollout step spent in
    ``collide``, and a second solve that must repeat the first bit for bit.
-   Neither new path launches the Riccati kernel (nu = 2 and 21);
+   On the B=16 solve's trajectory the linearizer in chunks of 8 knots
+   (``chunk_knots=8``) must equal its one pass over every knot at rtol
+   1e-7, atol 1e-9 (tests/test_linearize.py's), with non-finite values in
+   the same places, each pass's peak memory printed, and capture no more
+   CG graph shapes than the one pass uses (every chunk has one shape).
+   Then the humanoid at B=64 with ``chunk_knots=8``, which one card holds
+   only chunked: a solve (2 iterations) and 1 MPC frame whose traces must
+   be finite and monotone and whose mean cost must fall, with its peak
+   memory and seconds.  Neither new path launches the Riccati kernel
+   (nu = 2 and 21);
 11. determinism: at B=16 two cart-pole compat solves (5 iterations;
    trace, trajectory, K, k) and two hopper contact steps after 300 steps
    from rest (qpos, qvel, qacc) must be bitwise equal;
@@ -78,7 +87,8 @@ Phases, each of which raises on failure:
    cart-pole compat+fd at B=4096 in float64, REPS=2 and TRIALS=1 (a warm
    solve and chains of 1 and 2), whose JSON line must parse, with a
    positive value, ``vs_baseline`` equal to value / the C core's rate in
-   baselines.json, and (1 + 1 + 2) x 10 Riccati launches;
+   baselines.json, ``chunk_knots`` equal to ``bench.auto_chunk``'s for
+   the batch, and (1 + 1 + 2) x 10 Riccati launches;
    ``tools.perf_breakdown`` on the same path at REPS=1, whose ``backward``
    phase runs the kernel (warm-up and one rep each launch it once and the
    10-iteration solve 10 times: 22); and ``tools.humanoid_balance`` at its
@@ -174,6 +184,10 @@ B = 4096        # the pendulum's batch in bench.py
 HOPPER_B = 1024  # the hopper's batch in bench.py
 TUMBLER_B = 1024  # the tumbler's batch in bench.py
 HUMANOID_B = 16  # the humanoid's batch in bench.py
+# the humanoid at 4 times the batch one card holds unchunked, linearized
+# 8 knots at a time (bench.auto_chunk's)
+HUMANOID_CHUNKED_B = 64
+HUMANOID_CHUNK = 8
 DETERMINISM_B = 16
 SEED = 0
 FRAMES = 1       # closed-loop MPC frames after each path's solve
@@ -457,9 +471,10 @@ def tassa_iteration(env, x0, sol, times=None):
     return new, cost, sel, margin
 
 
-def phase_tassa(env, label, B, seed, device):
+def phase_tassa(env, label, B, seed, device, split=True):
     """Drive a tassa path at B through the user's entry points; returns
-    what the cross-device check needs."""
+    what the cross-device check needs.  With ``split`` one more iteration
+    is split part by part and its CUDA kernels counted."""
     gen = torch.Generator().manual_seed(seed)
     solve = batch.make_batched_solve(env)
     mpc_step = batch.make_batched_mpc_step(env)
@@ -503,6 +518,10 @@ def phase_tassa(env, label, B, seed, device):
           f"{c1:.6f}; largest trace step {rise:.3e}; mu in "
           f"[{float(sol.mu.min()):.3e}, {float(sol.mu.max()):.3e}]; "
           f"Riccati kernel launches {launches}; peak memory {peak:.2f} GiB")
+    out = dict(env=env, label=label, states=states, sols=sols, sol=sol,
+               trace=trace)
+    if not split:
+        return out
 
     times = {}
     tassa_iteration(env, states, sols, times)
@@ -512,8 +531,7 @@ def phase_tassa(env, label, B, seed, device):
         for name, t in times.items()))
     print_kernel_count(lambda: ilqr.iterate_tassa(
         env.model, env.cost_fn, states, sols, env.ilqr))
-    return dict(env=env, label=label, states=states, sols=sols, sol=sol,
-                trace=trace)
+    return out
 
 
 def phase_tassa_cross_device(tassa, tols, check_b=CHECK_B):
@@ -650,6 +668,59 @@ def phase_humanoid(B, seed, device):
     collide_share(env, tassa)
     check_solve_repeats(env, tassa)
     phase_tassa_cross_device(tassa, HOPPER_TASSA_TOLS, HUMANOID_CHECK_B)
+    check_chunked_linearization(env, tassa["sol"].traj, HUMANOID_CHUNK)
+
+
+def check_chunked_linearization(env, traj, chunk):
+    """``linearize_traj`` of ``traj`` in chunks of ``chunk`` knots against
+    its one pass over every knot: rtol 1e-7, atol 1e-9, non-finite values
+    in the same places.  Each pass starts from an empty CG graph cache, so
+    that its peak is its own and the shapes it captures are counted."""
+    gib = 2 ** 30
+    passes = {}
+    for c in (None, chunk):
+        lin_cfg = dataclasses.replace(env.ilqr.lin, chunk_knots=c)
+        solver.clear_graphs()
+        base = torch.cuda.memory_allocated() / gib
+        torch.cuda.reset_peak_memory_stats()
+        lin, dt = sync_time(lambda: linearize_traj(env.model, traj,
+                                                   env.cost_fn, lin_cfg))
+        passes[c] = dict(lin=lin, seconds=dt, base=base,
+                         peak=torch.cuda.max_memory_allocated() / gib,
+                         shapes=len(solver._GRAPHS.keys))
+    solver.clear_graphs()
+    one, chunked = passes[None], passes[chunk]
+    errs = [check_close(f"chunk_knots={chunk} {name}", getattr(
+        chunked["lin"], name), getattr(one["lin"], name), 1e-7, 1e-9,
+        nonfinite=True) for name in one["lin"]._fields]
+    if chunked["shapes"] > one["shapes"]:
+        raise AssertionError(f"the pass in chunks of {chunk} captured "
+                             f"{chunked['shapes']} CG graph shapes, the one "
+                             f"pass {one['shapes']}")
+    T = traj.qpos.shape[1]
+    print(f"humanoid: linearize_traj of B={traj.qpos.shape[0]} x {T} knots "
+          f"in chunks of {chunk} ({-(-T // chunk)} chunks) equals the one "
+          "pass; max abs err A/B/gx/gu/cost "
+          + " ".join(f"{e:.2e}" for e in errs))
+    for c, p in passes.items():
+        print(f"humanoid: linearize_traj chunk_knots={c}: {p['seconds']:.3f}"
+              f" s, peak {p['peak']:.2f} GiB ({p['peak'] - p['base']:.2f} "
+              f"above the {p['base']:.2f} allocated before), "
+              f"{p['shapes']} CG graph shapes")
+
+
+def phase_humanoid_chunked(B, chunk, seed, device):
+    """The humanoid's tassa+ad path at B with the linearizer in chunks of
+    ``chunk`` knots: a solve and the MPC frames, checked as every tassa
+    path (finite, monotone traces, the mean cost falls)."""
+    env = with_iterations(envs.make("humanoid"), HUMANOID_ITERS)
+    env = dataclasses.replace(env, ilqr=dataclasses.replace(
+        env.ilqr, lin=dataclasses.replace(env.ilqr.lin, chunk_knots=chunk)))
+    t0 = time.perf_counter()
+    phase_tassa(env, f"humanoid chunk_knots={chunk}", B, seed, device,
+                split=False)
+    print(f"humanoid chunk_knots={chunk}: B={B} solve and {FRAMES} MPC "
+          f"frame(s) with set-up in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_determinism(B, seed, device):
@@ -859,6 +930,10 @@ def phase_bench_and_tools(workdir, B, device):
         dict(path, ILQG_BENCH_REPS=str(reps), ILQG_BENCH_TRIALS=str(trials),
              ILQG_BENCH_DTYPE="float64"))
     line = json.loads(last)
+    if line.get("chunk_knots", "absent") != bench.auto_chunk("pendulum", B):
+        raise AssertionError(f"bench: chunk_knots "
+                             f"{line.get('chunk_knots', 'absent')}, expected "
+                             f"{bench.auto_chunk('pendulum', B)}")
     ref = json.loads((pathlib.Path(__file__).resolve().parent
                       / "baselines.json").read_text())["pendulum"]
     want_vs = line["value"] / ref["ilqr_iters_per_s"]
@@ -1335,11 +1410,14 @@ def main():
     clear_graph_cache("tumbler tassa+ad")
     mark("humanoid tassa+ad")
     phase_humanoid(HUMANOID_B, SEED, "cuda")
+    clear_graph_cache("humanoid tassa+ad")
+    mark("humanoid tassa+ad, chunked")
+    phase_humanoid_chunked(HUMANOID_CHUNKED_B, HUMANOID_CHUNK, SEED, "cuda")
     if riccati.LAUNCHES:
         raise AssertionError(f"the Riccati kernel launched {riccati.LAUNCHES}"
                              " times during the tumbler and humanoid phases")
     print("tumbler and humanoid phases: 0 Riccati kernel launches")
-    clear_graph_cache("humanoid tassa+ad")
+    clear_graph_cache(f"humanoid chunk_knots={HUMANOID_CHUNK}")
     mark("determinism")
     phase_determinism(DETERMINISM_B, SEED, "cuda")
     clear_graph_cache("determinism")

@@ -69,10 +69,19 @@ class LinearizeConfig:
     # 'fd' (reference-exact) | 'ad' (AD of qacc, Euler-assembled like the
     # reference) | 'exact' (AD of the full discrete step: correct for RK4)
     engine: str = "fd"
+    # knots linearized at once by linearize_traj: None = every knot in one
+    # pass (fastest); c = ceil(T/c) passes of c knots in turn, so the
+    # engine's per-lane temporaries (the per-state J of a contact model,
+    # its tangents) take c/T of the memory: what lets a card hold a batch
+    # whose whole-horizon linearization does not fit
+    chunk_knots: int | None = None
 
     def __post_init__(self):
         if self.engine not in ("fd", "ad", "exact"):
             raise ValueError(f"unknown linearize engine {self.engine!r}")
+        if self.chunk_knots is not None and self.chunk_knots < 1:
+            raise ValueError(f"chunk_knots must be None or at least 1, not "
+                             f"{self.chunk_knots!r}")
         if self.engine == "exact" and (self.compat_transpose_A
                                        or self.compat_scramble_B):
             # the compat flags reproduce the reference's Euler-assembly
@@ -355,5 +364,34 @@ def linearize_traj(model: Model, states: State, cost_fn: CostFn,
     """Linearize every knot of a (B, T) trajectory batch in one batched
     pass: this single call replaces the reference's N+1 serialized
     calcMJDerivatives invocations inside the backward loop
-    (inc/ilqr.h:153-154)."""
-    return _ENGINES[cfg.engine](model, states, cost_fn, cfg)
+    (inc/ilqr.h:153-154).
+
+    With ``cfg.chunk_knots = c`` the knots go through the engine c at a
+    time, one chunk after the other, so that a chunk's temporaries are
+    freed before the next chunk starts.  The knot dim is padded to whole
+    chunks by repeating the last knot, so that every chunk has one shape
+    (and the CG captures one graph for each of its solves, not two); the
+    outputs are concatenated and the padding dropped."""
+    engine = _ENGINES[cfg.engine]
+    c = cfg.chunk_knots
+    if c is None:
+        return engine(model, states, cost_fn, cfg)
+    d = states.qpos.dim() - 2            # the knot dim: the last batch dim
+    T = states.qpos.shape[d]
+    pad = -T % c
+
+    def padded(a):
+        tail = list(a.shape)
+        tail[d] = pad
+        return torch.cat([a, a.narrow(d, T - 1, 1).expand(tail)], d)
+
+    if pad:
+        states = states.map(padded)
+    outs = []
+    for start in range(0, T, c):
+        out = engine(model, states.map(lambda a: a.narrow(d, start, c)),
+                     cost_fn, cfg)
+        keep = min(c, T - start)         # the last chunk's knots of T
+        outs.append(out if keep == c else
+                    LinOut(*(x.narrow(d, 0, keep) for x in out)))
+    return LinOut(*(torch.cat(xs, d) for xs in zip(*outs)))

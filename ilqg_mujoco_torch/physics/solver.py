@@ -288,6 +288,14 @@ class _GraphCache:
         step.load(c, carry)       # the warm-up moved the carry
         return step, key
 
+    def static_bytes(self) -> int:
+        """The bytes of the held steps' static buffers (each step's copy
+        of ``c = (M, Mfac, qacc_smooth, J, D, aref)`` and of the carry);
+        the captured graphs' own memory pools are not counted."""
+        return sum(t.numel() * t.element_size()
+                   for step in self.steps.values()
+                   for t in step.c + step.carry)
+
     def clear(self):
         self.steps.clear()
         self.keys.clear()

@@ -8,27 +8,31 @@ counterpart of the JAX package's ``tools/bsweep.py``.
 Each row runs ``python -m ilqg_mujoco_torch.bench`` in its own process
 with ``ILQG_BENCH_BACKOFF=0``, so that a row reports its own batch and a
 row that does not fit takes its allocator and captured graphs with it.  A
-row records the bench line, the peak device memory (the bench's stderr
-line) and ``wall_s``; a row that fails is a row too, with its batch and
-``error`` (``out of memory``, ``timeout`` after the row's ``timeout``
-seconds, or the end of the process's output).  The process exits 1 only
-when every row failed.
+row records the bench line, the peak device memory and the static bytes
+of the CG graphs held at the end (the bench's stderr lines: ``peak_gib``,
+``graph_gib``) and ``wall_s``; a row that fails is a row too, with its
+batch and ``error`` (``out of memory``, ``timeout`` after the row's
+``timeout`` seconds, or the end of the process's output).  The process
+exits 1 only when every row failed.
 
 A config is a dict: ``env`` (``--env`` where absent), ``batch``, ``mode``
 (tassa), ``engine`` (ad), ``reps`` and ``trials`` (``--reps``, 2, and
 ``--trials``, 1: the JAX tool's 20 and 5 timed TPU solves of
 milliseconds, a card's solve takes seconds to a minute), ``dtype``
-(float64), ``timeout`` (1500 s), ``backoff`` ("0"); with ``"doubling":
-true`` it stands for rows at batch, 2 batch, 4 batch ... up to the first
-row that fails.  The default sweep doubles
-each of the six paths of the port's bench from its default batch (the
-cart-pole compat+fd and tassa+ad, the hopper tassa+ad and compat+fd, the
-tumbler, the humanoid) and adds the humanoid at B=24.
+(float64), ``chunk`` (the linearizer's ``chunk_knots``, as
+``ILQG_BENCH_CHUNK``; without it the variable is unset and the bench picks
+``bench.auto_chunk``'s), ``timeout`` (1500 s), ``backoff`` ("0"); with
+``"doubling": true`` it stands for rows at batch, 2 batch, 4 batch ... up
+to the first row that fails.  The default sweep doubles each of the six
+paths of the port's bench from its default batch (the cart-pole compat+fd
+and tassa+ad, the hopper tassa+ad and compat+fd, the tumbler, the
+humanoid), past each one's unchunked frontier through ``auto_chunk``, and
+adds the humanoid at B=24 (chunked by ``auto_chunk``).
 
-Prints each row as a JSON line as it ends, then a markdown table with the
-peak GiB and the GiB per instance.  Runs on the card; ``main(device=
-"cpu")`` runs its rows on the CPU (the bench's ``main("cpu")`` in a fresh
-process).
+Prints each row as a JSON line as it ends, then a markdown table with
+each row's ``chunk_knots``, the peak GiB and the GiB per instance.  Runs
+on the card; ``main(device="cpu")`` runs its rows on the CPU (the bench's
+``main("cpu")`` in a fresh process).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import subprocess
 import sys
 import time
 
-from ..bench import DEFAULT_BATCH
+from ..bench import DEFAULT_BATCH, auto_chunk
 from ..physics.model import resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent.parent
@@ -54,6 +58,7 @@ DEFAULT_SWEEP = [
      "batch": DEFAULT_BATCH[env], "doubling": True}
     for env, mode, engine in PATHS] + [{"env": "humanoid", "batch": 24}]
 PEAK = re.compile(r"bench: peak device memory ([0-9.]+) GiB")
+GRAPHS = re.compile(r"bench: CG graph cache \d+ shapes held, ([0-9.]+) GiB")
 
 
 def command(device):
@@ -75,6 +80,10 @@ def run_one(env_name, cfg, reps, trials, device):
     env["ILQG_BENCH_MODE"] = cfg.get("mode", "tassa")
     env["ILQG_BENCH_ENGINE"] = cfg.get("engine", "ad")
     env["ILQG_BENCH_DTYPE"] = cfg.get("dtype", "float64")
+    if "chunk" in cfg:
+        env["ILQG_BENCH_CHUNK"] = str(cfg["chunk"])
+    else:
+        env.pop("ILQG_BENCH_CHUNK", None)
     # a sweep row reports ITS batch: no backoff, a failure is a row
     env["ILQG_BENCH_BACKOFF"] = cfg.get("backoff", "0")
     t0 = time.time()
@@ -91,8 +100,10 @@ def run_one(env_name, cfg, reps, trials, device):
                             else text[-300:])
         peak = PEAK.search(p.stderr)
         row["peak_gib"] = float(peak.group(1)) if peak else None
+        graphs = GRAPHS.search(p.stderr)
+        row["graph_gib"] = float(graphs.group(1)) if graphs else None
     except subprocess.TimeoutExpired:
-        row = {"error": "timeout", "peak_gib": None}
+        row = {"error": "timeout", "peak_gib": None, "graph_gib": None}
     row["config"] = cfg
     row["wall_s"] = round(time.time() - t0, 1)
     return row
@@ -129,13 +140,18 @@ def sweep(configs, env_name, reps, trials, device, out=None):
 
 def table(rows, env_name="pendulum"):
     """The markdown table of ``rows``."""
-    out = ["| env | B | mode+engine | iters/s (headline) | "
+    out = ["| env | B | mode+engine | chunk_knots | iters/s (headline) | "
            "trial min/median/max | peak GiB | GiB per instance | wall s | "
-           "note |", "|---|---|---|---|---|---|---|---|---|"]
+           "note |", "|---|---|---|---|---|---|---|---|---|---|"]
     for r in rows:
         c = r["config"]
         me = f"{c.get('mode', 'tassa')}+{c.get('engine', 'ad')}"
-        head = f"| {c.get('env', env_name)} | {c.get('batch')} | {me} |"
+        env = c.get("env", env_name)
+        # the bench line's; a failed row's, the one its bench picked
+        chunk = r.get("chunk_knots", c["chunk"] if "chunk" in c
+                      else auto_chunk(env, c.get("batch", 0)))
+        head = (f"| {env} | {c.get('batch')} | {me} | "
+                f"{'none' if chunk is None else chunk} |")
         if "error" in r:
             out.append(f"{head} FAILED | | | | {r['wall_s']} | "
                        f"{r['error'][:60]} |")

@@ -48,15 +48,16 @@ The report has the JAX tool's keys, with ``vs_h100_peak`` in place of
 cores and the HBM rate) and ``ridge_point_flop_per_byte`` for the f32
 ridge, plus the least time the card could take (``bound_s``, by
 ``bound_by``), its share of the measured time (``share_of_bound``), the
-count of ops and of kernel launches, and ``device`` (the card's name and
-power limit).  Device rates are null on the CPU, where only the count
-means anything.
+count of ops and of kernel launches, the linearizer's ``chunk_knots``,
+and ``device`` (the card's name and power limit).  Device rates are null
+on the CPU, where only the count means anything.
 
 Env knobs, as the JAX tool's: ILQG_BENCH_ENV (pendulum), ILQG_BENCH_BATCH
 (the bench's default batch for the env), ILQG_BENCH_MODE (tassa),
-ILQG_BENCH_ENGINE (ad), ILQG_BENCH_REPS (20), ILQG_BENCH_TRIALS (3), and
-the bench's ILQG_BENCH_DTYPE (float64).  Runs on the card; only
-``main(device="cpu")`` runs on the CPU.
+ILQG_BENCH_ENGINE (ad), ILQG_BENCH_REPS (20), ILQG_BENCH_TRIALS (3),
+ILQG_BENCH_CHUNK (the linearizer's ``chunk_knots``; unset or empty: every
+knot in one pass), and the bench's ILQG_BENCH_DTYPE (float64).  Runs on
+the card; only ``main(device="cpu")`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -232,12 +233,12 @@ def count_solve(env, solve, states, sols, device) -> dict:
 
 
 def measure(env_name, mode, engine, batch, reps, trials, dtype_name,
-            device) -> dict:
+            device, chunk=None) -> dict:
     """The JAX tool's report for one configuration (module docstring)."""
     dev = resolve_device(device)
     dtype = bench.DTYPES[dtype_name]
     env, states, sols, solve = bench.build(env_name, mode, engine, batch,
-                                           dtype, dev)
+                                           dtype, dev, chunk)
     # the counted solve is the warm one: the kernel's build and the CG's
     # captures, which the count skips
     c = count_solve(env, solve, states, sols, dev)
@@ -259,6 +260,7 @@ def measure(env_name, mode, engine, batch, reps, trials, dtype_name,
     bound, bound_by = profiling.bound_s(flops, nbytes, dtype)
     return {
         "env": env_name, "batch": batch, "mode": mode, "engine": engine,
+        "chunk_knots": chunk,
         "per_solve_call": {
             "flops": flops,
             "hbm_bytes_accessed": nbytes,
@@ -307,8 +309,9 @@ def main(device=None) -> int:
     reps = int(os.environ.get("ILQG_BENCH_REPS", "20"))
     trials = int(os.environ.get("ILQG_BENCH_TRIALS", "3"))
     dtype_name = os.environ.get("ILQG_BENCH_DTYPE", "float64")
+    chunk = os.environ.get("ILQG_BENCH_CHUNK", "")
     r = measure(env_name, mode, engine, batch, reps, trials, dtype_name,
-                resolve_device(device))
+                resolve_device(device), int(chunk) if chunk else None)
     share = r["share_of_bound"]
     print(f"# {r['device']}: {r['per_solve_call']['flops']:.4g} FLOPs and "
           f"{r['per_solve_call']['hbm_bytes_accessed']:.4g} bytes a solve in "

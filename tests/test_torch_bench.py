@@ -10,7 +10,9 @@ JAX package's ``bench.py``, on the CPU.
 - The line: both mains, with ``build`` and ``measure`` replaced by stubs
   that return the same rate, print the same keys and values for every
   (env, mode, engine) of the registry, ``vs_baseline`` included; the port
-  leaves out ``chunk_knots`` and adds ``device`` and ``dtype``.
+  adds ``device`` and ``dtype``, and its ``chunk_knots`` is its own
+  ``auto_chunk``'s (the card's thresholds), ``bench.py``'s that of
+  ``bench.auto_chunk``.
 - Backoff: an out-of-memory error at B retries at B/2 after
   ``solver.clear_graphs``; any other error propagates; a run where no
   batch fits prints the zero line and returns 1.
@@ -199,7 +201,8 @@ def test_line_matches_bench_py(jbench, monkeypatch, capsys, name, mode,
     rc_w, want = _run_main(jbench.main, capsys)
     rc, got = _run_main(lambda: bench.main(device="cpu"), capsys)
     assert rc == rc_w == 0
-    del want["chunk_knots"]
+    assert want.pop("chunk_knots") == jbench.auto_chunk(name, want["batch"])
+    assert got.pop("chunk_knots") == bench.auto_chunk(name, got["batch"])
     assert got.pop("device") == "cpu"
     assert got.pop("dtype") == "float64"
     assert got == want
@@ -281,7 +284,8 @@ def test_real_run_cartpole_compat(monkeypatch, capsys):
     assert rc == 0 and riccati.LAUNCHES == before     # the plain version
     assert sorted(line) == sorted(
         ["metric", "value", "unit", "vs_baseline", "spread", "batch",
-         "device", "dtype"])
+         "chunk_knots", "device", "dtype"])
+    assert line["chunk_knots"] is None
     assert line["metric"] == "ilqr_iters_per_s_pendulum_batch2_compat_fd"
     assert line["value"] > 0 and line["batch"] == 2
     ref = json.loads((ROOT / "baselines.json").read_text())["pendulum"]

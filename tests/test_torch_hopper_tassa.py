@@ -39,7 +39,7 @@ from ilqg_mujoco_torch.utils.convert import (state_from_numpy,  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ASSET = ROOT / "ilqg_mujoco_tpu" / "models" / "assets" / "hopper.xml"
-N, ITERS, B = 8, 3, 2
+N, ITERS, B = 8, 2, 2
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -149,7 +149,7 @@ def test_linearize_ad_matches_jax_through_contact(setup):
 
 
 def test_tassa_solve_matches_jax_alpha_by_alpha(setup):
-    """Three iterations of the batched tassa solve on both packages, each
+    """Two iterations of the batched tassa solve on both packages, each
     carrying its own solver state: the same alpha selected for every
     instance at every iteration, and the costs, mu, gains and controls
     matching; the port's solve through make_batched_solve gives the same

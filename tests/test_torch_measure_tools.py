@@ -340,8 +340,20 @@ def test_bsweep_row_reads_its_process(case, monkeypatch):
 
 def test_bsweep_real_cpu_row(capsys, monkeypatch):
     """One row of the bench in a fresh CPU process: cart-pole compat+fd,
-    B=2, REPS 2, TRIALS 1 (a warm solve and chains of one and two)."""
+    B=2, REPS 2, TRIALS 1 (a warm solve and chains of one and two).  The
+    row's own command runs, after a line that cuts the env's solver to N=6
+    and 3 iterations."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    cmd = bsweep.command(CPU)
+    assert cmd[1] == "-c"
+    cut = ("import dataclasses\n"
+           "from ilqg_mujoco_torch.models import envs\n"
+           "make = envs.make\n"
+           "envs.make = lambda *a, **k: (lambda e: dataclasses.replace(\n"
+           "    e, ilqr=dataclasses.replace(e.ilqr, horizon=6,\n"
+           "                                iterations=3)))(make(*a, **k))\n")
+    monkeypatch.setattr(bsweep, "command",
+                        lambda device: cmd[:2] + [cut + cmd[2]])
     configs = [{"env": "pendulum", "mode": "compat", "engine": "fd",
                 "batch": 2, "timeout": 300}]
     assert bsweep.main(["--configs", json.dumps(configs)], "cpu") == 0
