@@ -25,6 +25,11 @@ Modes
 
 Time indexing is forward (t=0 initial, t=N terminal); knot t carries the
 ctrl applied at it.
+
+Inside ``utils.profiling.tracing`` each phase is a span: ``solve`` (one
+request id a call), ``rollout``, ``iteration``, ``forward``,
+``linearize`` (in ``ops/linearize.py``), ``backward`` and ``select``, all
+but ``solve`` timed on the card too.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from .ops.linearize import (CostFn, LinearizeConfig, LinOut, _qpos_diff,
                             linearize_traj)
 from .physics import forward as fwd
 from .physics.model import Model, State, device_arrays, stack_states
+from .utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,10 +119,11 @@ def init_solver(model: Model, x0: State, cfg: ILQRConfig) -> ILQRState:
     """Initial trajectory: roll the initial states forward under their
     current ctrl (the ILQR ctor loop, inc/ilqr.h:82-87), K/k = 0."""
     knots, s = [], x0
-    for t in range(cfg.horizon + 1):
-        knots.append(s)
-        if t < cfg.horizon:
-            s = fwd.step(model, s)
+    with profiling.span("rollout", device=True):
+        for t in range(cfg.horizon + 1):
+            knots.append(s)
+            if t < cfg.horizon:
+                s = fwd.step(model, s)
     B, dt, dev = x0.qpos.shape[0], x0.qpos.dtype, x0.qpos.device
     n1 = cfg.horizon + 1
     return ILQRState(
@@ -154,16 +161,19 @@ def forward_pass(model: Model, x0: State, sol: ILQRState,
     if cfg.control_limits:
         lo, hi = ctrl_bounds(model, sol.k.dtype, sol.k.device)
     knots, s = [], x0
-    for t in range(cfg.horizon + 1):
-        dx = state_diff(model, s.qpos, s.qvel, ref.qpos[:, t], ref.qvel[:, t])
-        u = linalg.mv(sol.K[:, t], dx) + alpha * sol.k[:, t] + ref.ctrl[:, t]
-        if cfg.control_limits:
-            u = torch.minimum(torch.maximum(u, lo), hi)
-        knot = s.replace(ctrl=u)
-        knots.append(knot)
-        if t < cfg.horizon:
-            s = fwd.step(model, knot)
-    return stack_states(knots, 1)
+    with profiling.span("forward", device=True):
+        for t in range(cfg.horizon + 1):
+            dx = state_diff(model, s.qpos, s.qvel, ref.qpos[:, t],
+                            ref.qvel[:, t])
+            u = (linalg.mv(sol.K[:, t], dx) + alpha * sol.k[:, t]
+                 + ref.ctrl[:, t])
+            if cfg.control_limits:
+                u = torch.minimum(torch.maximum(u, lo), hi)
+            knot = s.replace(ctrl=u)
+            knots.append(knot)
+            if t < cfg.horizon:
+                s = fwd.step(model, knot)
+        return stack_states(knots, 1)
 
 
 def _traj_cost(cost_fn: CostFn, traj: State) -> torch.Tensor:
@@ -230,16 +240,17 @@ def backward_compat(model: Model, traj: State, lin: LinOut, cfg: ILQRConfig):
     the Riccati kernel's wrapper for nu = 1 and 2 nv <= ``riccati.MAX_N``
     (the cart-pole; on the CPU the wrapper runs its plain version), the
     general :func:`backward_pass_compat` for every other shape."""
-    if model.nu != 1 or 2 * model.nv > riccati.MAX_N:
-        return backward_pass_compat(model, traj, lin, cfg)
-    N = cfg.horizon
-    K, k = riccati.backward_compat_batched(
-        lin.A[:, :N], lin.B[:, :N], lin.gx, lin.gu[:, :N],
-        knot_gaps(model, traj), cfg.mu)
-    Bsz, nv2 = K.shape[0], K.shape[-1]
-    K = torch.cat([K, K.new_zeros((Bsz, 1, 1, nv2))], 1)
-    k = torch.cat([k, k.new_zeros((Bsz, 1, 1))], 1)
-    return K, k
+    with profiling.span("backward", device=True):
+        if model.nu != 1 or 2 * model.nv > riccati.MAX_N:
+            return backward_pass_compat(model, traj, lin, cfg)
+        N = cfg.horizon
+        K, k = riccati.backward_compat_batched(
+            lin.A[:, :N], lin.B[:, :N], lin.gx, lin.gu[:, :N],
+            knot_gaps(model, traj), cfg.mu)
+        Bsz, nv2 = K.shape[0], K.shape[-1]
+        K = torch.cat([K, K.new_zeros((Bsz, 1, 1, nv2))], 1)
+        k = torch.cat([k, k.new_zeros((Bsz, 1, 1))], 1)
+        return K, k
 
 
 # ---------------------------------------------------------------------------
@@ -364,9 +375,10 @@ def backward_pass_tassa(model: Model, traj: State, lin: LinOut,
     Returns (K, k, dV1, dV2, ok): gains (B, N+1, ...) with zero terminal
     gains, expected-improvement terms and a positive-definiteness flag per
     instance for the mu adaptation."""
-    return _tassa_recursion(model, lin, _cost_quadratics(cost_fn, model,
-                                                         traj),
-                            traj.ctrl, mu, cfg)
+    with profiling.span("backward", device=True):
+        return _tassa_recursion(model, lin, _cost_quadratics(cost_fn, model,
+                                                             traj),
+                                traj.ctrl, mu, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -433,11 +445,20 @@ def backward_pass_assoc(model: Model, traj: State, lin: LinOut,
     every Quu (the sequential pass regularizes only the gain solves, so the
     two coincide as mu -> 0 and agree to O(mu) otherwise).  Same return
     contract: (K, k, dV1, dV2, ok)."""
+    with profiling.span("backward", device=True):
+        return _assoc_recursion(model, lin, _cost_quadratics(cost_fn, model,
+                                                             traj), mu, cfg)
+
+
+def _assoc_recursion(model: Model, lin: LinOut, quad, mu: torch.Tensor,
+                     cfg: ILQRConfig):
+    """The associative-scan backward pass given the cost quadratics
+    ``quad``."""
     N = cfg.horizon
     nv2, nu = 2 * model.nv, model.nu
     dt, dev = lin.A.dtype, lin.A.device
     Bsz = lin.A.shape[0]
-    lx, lu, lxx, luu, lux = _cost_quadratics(cost_fn, model, traj)
+    lx, lu, lxx, luu, lux = quad
     eye = torch.eye(nu, dtype=dt, device=dev)
     mu4 = mu[:, None, None, None]
 
@@ -491,11 +512,12 @@ def iterate_compat(model: Model, cost_fn: CostFn, x0: State,
                    sol: ILQRState, cfg: ILQRConfig):
     """One reference iteration (inc/ilqr.h:179-186): forward then
     backward.  Returns (solver state, (B,) trajectory cost)."""
-    traj = forward_pass(model, x0, sol, cfg)
-    lin = linearize_traj(model, traj, cost_fn, cfg.lin)
-    K, k = backward_compat(model, traj, lin, cfg)
-    cost = _traj_cost(cost_fn, traj)
-    return ILQRState(traj=traj, K=K, k=k, mu=sol.mu), cost
+    with profiling.span("iteration", device=True):
+        traj = forward_pass(model, x0, sol, cfg)
+        lin = linearize_traj(model, traj, cost_fn, cfg.lin)
+        K, k = backward_compat(model, traj, lin, cfg)
+        cost = _traj_cost(cost_fn, traj)
+        return ILQRState(traj=traj, K=K, k=k, mu=sol.mu), cost
 
 
 def linesearch_rollouts(model: Model, cost_fn: CostFn, x0: State,
@@ -509,11 +531,13 @@ def linesearch_rollouts(model: Model, cost_fn: CostFn, x0: State,
     alphas = torch.tensor((0.0,) + tuple(cfg.alphas), dtype=k.dtype,
                           device=k.device).repeat_interleave(Bsz)
     rep = lambda x: x.repeat((na,) + (1,) * (x.dim() - 1))   # alpha-major
-    cand = ILQRState(traj=sol.traj.map(rep), K=rep(K), k=rep(k),
-                     mu=rep(sol.mu))
-    trajs = forward_pass(model, x0.map(rep), cand, cfg, alpha=alphas)
-    costs = _traj_cost(cost_fn, trajs).reshape(na, Bsz)
-    return trajs.map(lambda x: x.reshape((na, Bsz) + x.shape[1:])), costs
+    with profiling.span("forward", device=True):
+        cand = ILQRState(traj=sol.traj.map(rep), K=rep(K), k=rep(k),
+                         mu=rep(sol.mu))
+        trajs = forward_pass(model, x0.map(rep), cand, cfg, alpha=alphas)
+        costs = _traj_cost(cost_fn, trajs).reshape(na, Bsz)
+        return (trajs.map(lambda x: x.reshape((na, Bsz) + x.shape[1:])),
+                costs)
 
 
 def linesearch_select(cost_fn: CostFn, sol: ILQRState, K: torch.Tensor,
@@ -532,31 +556,32 @@ def linesearch_select(cost_fn: CostFn, sol: ILQRState, K: torch.Tensor,
     Returns (solver state, (B,) cost, (B,) selection): the index into
     (0,) + cfg.alphas of the accepted rollout, 0 for the rebase onto the
     alpha=0 rollout, -1 for keeping the stored trajectory."""
-    Bsz = costs.shape[1]
-    cost_stale = _traj_cost(cost_fn, sol.traj)
-    rebase_ok = torch.isfinite(costs[0])
-    cost0 = torch.where(rebase_ok, costs[0], cost_stale)
-    best = first_argmin(_T(costs[1:])) + 1
-    lane = torch.arange(Bsz, device=costs.device)
-    cbest = costs[best, lane]
-    improved = ok & (cbest < cost0)
-    sel = torch.where(improved, best,
-                      torch.where(rebase_ok, 0, -1))
-    take = sel.clamp(min=0)
+    with profiling.span("select", device=True):
+        Bsz = costs.shape[1]
+        cost_stale = _traj_cost(cost_fn, sol.traj)
+        rebase_ok = torch.isfinite(costs[0])
+        cost0 = torch.where(rebase_ok, costs[0], cost_stale)
+        best = first_argmin(_T(costs[1:])) + 1
+        lane = torch.arange(Bsz, device=costs.device)
+        cbest = costs[best, lane]
+        improved = ok & (cbest < cost0)
+        sel = torch.where(improved, best,
+                          torch.where(rebase_ok, 0, -1))
+        take = sel.clamp(min=0)
 
-    def pick(cands, old):
-        keep = (sel >= 0).reshape((Bsz,) + (1,) * (old.dim() - 1))
-        return torch.where(keep, cands[take, lane], old)
+        def pick(cands, old):
+            keep = (sel >= 0).reshape((Bsz,) + (1,) * (old.dim() - 1))
+            return torch.where(keep, cands[take, lane], old)
 
-    new_traj = State(**{f.name: pick(getattr(trajs, f.name),
-                                     getattr(sol.traj, f.name))
-                        for f in dataclasses.fields(State)})
-    mu = torch.where(improved,
-                     torch.clamp(sol.mu / cfg.mu_factor, min=cfg.mu_min),
-                     torch.clamp(sol.mu * cfg.mu_factor ** 2,
-                                 max=cfg.mu_max))
-    cost = torch.where(improved, cbest, cost0)
-    return ILQRState(traj=new_traj, K=K, k=k, mu=mu), cost, sel
+        new_traj = State(**{f.name: pick(getattr(trajs, f.name),
+                                         getattr(sol.traj, f.name))
+                            for f in dataclasses.fields(State)})
+        mu = torch.where(improved,
+                         torch.clamp(sol.mu / cfg.mu_factor, min=cfg.mu_min),
+                         torch.clamp(sol.mu * cfg.mu_factor ** 2,
+                                     max=cfg.mu_max))
+        cost = torch.where(improved, cbest, cost0)
+        return ILQRState(traj=new_traj, K=K, k=k, mu=mu), cost, sel
 
 
 def iterate_tassa(model: Model, cost_fn: CostFn, x0: State,
@@ -564,14 +589,16 @@ def iterate_tassa(model: Model, cost_fn: CostFn, x0: State,
     """One modern iLQG iteration for every instance: linearize the stored
     trajectory, regularized backward pass, and the parallel backtracking
     linesearch.  Returns (solver state, (B,) cost)."""
-    lin = linearize_traj(model, sol.traj, cost_fn, cfg.lin)
-    bwd = (backward_pass_assoc if cfg.backward == "assoc"
-           else backward_pass_tassa)
-    K, k, _, _, ok = bwd(model, sol.traj, lin, cost_fn, sol.mu, cfg)
-    trajs, costs = linesearch_rollouts(model, cost_fn, x0, sol, K, k, cfg)
-    sol, cost, _ = linesearch_select(cost_fn, sol, K, k, ok, trajs, costs,
-                                     cfg)
-    return sol, cost
+    with profiling.span("iteration", device=True):
+        lin = linearize_traj(model, sol.traj, cost_fn, cfg.lin)
+        bwd = (backward_pass_assoc if cfg.backward == "assoc"
+               else backward_pass_tassa)
+        K, k, _, _, ok = bwd(model, sol.traj, lin, cost_fn, sol.mu, cfg)
+        trajs, costs = linesearch_rollouts(model, cost_fn, x0, sol, K, k,
+                                           cfg)
+        sol, cost, _ = linesearch_select(cost_fn, sol, K, k, ok, trajs,
+                                         costs, cfg)
+        return sol, cost
 
 
 def solve(model: Model, cost_fn: CostFn, x0: State, sol: ILQRState,
@@ -583,7 +610,8 @@ def solve(model: Model, cost_fn: CostFn, x0: State, sol: ILQRState,
     Returns (solver state, (B, iterations) cost trace)."""
     it = iterate_compat if cfg.mode == "compat" else iterate_tassa
     trace = []
-    for _ in range(cfg.iterations):
-        sol, cost = it(model, cost_fn, x0, sol, cfg)
-        trace.append(cost)
-    return sol, torch.stack(trace, 1)
+    with profiling.span("solve", request=True):
+        for _ in range(cfg.iterations):
+            sol, cost = it(model, cost_fn, x0, sol, cfg)
+            trace.append(cost)
+        return sol, torch.stack(trace, 1)

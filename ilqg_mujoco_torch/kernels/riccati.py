@@ -162,7 +162,7 @@ def backward_compat_batched(A, B, gx, gu, diffs, mu):
     for x, s in zip((A, B, gx, gu, diffs), strides):
         args += [x.data_ptr(), s]
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    with torch.cuda.device(A.device):
+    with profiling.span("riccati"), torch.cuda.device(A.device):
         rc = fn(*args, float(mu), K.data_ptr(), k.data_ptr(), Bt, N, n,
                 stream)
     if rc != 0:

@@ -10,6 +10,9 @@ every instance of the batch:
 
 The solver state persists across frames like the reference's long-lived
 ILQR object: that warm start is what makes 10 iterations per frame enough.
+
+Inside ``utils.profiling.tracing`` a frame is the span ``frame`` (timed on
+the card too) and its env step the span ``env_step``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from . import ilqr
 from .models.envs import Env
 from .physics import forward as fwd
 from .physics.model import State, make_state, stack_states
+from .utils import profiling
 
 
 class MPCOut(NamedTuple):
@@ -37,11 +41,13 @@ def mpc_step(env: Env, env_state: State, sol: ilqr.ILQRState):
     """One MPC frame.  Returns (env_state', sol', (u0, cost_trace,
     step_cost))."""
     model, cfg = env.model, env.ilqr
-    sol, cost_trace = ilqr.solve(model, env.cost_fn, env_state, sol, cfg)
-    u0 = sol.traj.ctrl[:, 0]
-    env_next = fwd.step(model, env_state.replace(ctrl=u0))
-    step_cost = env.cost_fn(env_state.qpos, env_state.qvel, u0)
-    return env_next, sol, (u0, cost_trace, step_cost)
+    with profiling.span("frame", device=True):
+        sol, cost_trace = ilqr.solve(model, env.cost_fn, env_state, sol, cfg)
+        u0 = sol.traj.ctrl[:, 0]
+        with profiling.span("env_step"):
+            env_next = fwd.step(model, env_state.replace(ctrl=u0))
+        step_cost = env.cost_fn(env_state.qpos, env_state.qvel, u0)
+        return env_next, sol, (u0, cost_trace, step_cost)
 
 
 def init(env: Env, x0: State = None, device=None, dtype=torch.float64):

@@ -47,6 +47,7 @@ from ..physics import collision
 from ..physics import forward as fwd
 from ..physics import smooth, spatial
 from ..physics.model import JNT_FREE, JNT_HINGE, JNT_SLIDE, Model, State
+from ..utils import profiling
 
 # cost(qpos, qvel, ctrl) -> (...): the stepCostFn_t contract
 # (reference inc/mjderivative.h:5) on batched tensors
@@ -372,6 +373,13 @@ def linearize_traj(model: Model, states: State, cost_fn: CostFn,
     chunks by repeating the last knot, so that every chunk has one shape
     (and the CG captures one graph for each of its solves, not two); the
     outputs are concatenated and the padding dropped."""
+    with profiling.span("linearize", device=True):
+        return _chunked(model, states, cost_fn, cfg)
+
+
+def _chunked(model: Model, states: State, cost_fn: CostFn,
+             cfg: LinearizeConfig) -> LinOut:
+    """:func:`linearize_traj`'s work, chunk by chunk where asked."""
     engine = _ENGINES[cfg.engine]
     c = cfg.chunk_knots
     if c is None:

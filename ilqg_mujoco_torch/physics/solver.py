@@ -18,6 +18,12 @@ Two modes, as in the reference:
   iterates it would get alone.  The loop asks the host once per iteration
   whether any instance is still active.
 
+Inside ``profiling.tracing`` the loop is the span ``cg``, each early-exit
+test the span ``cg.sync``, and each capture of a graph the span
+``cg.capture``; the counters ``cg.iters``, ``cg.syncs`` and
+``cg.captures`` count the iterations run, the tests and the captures, on
+the card and the CPU alike.
+
 On the card each iteration is one replay of a CUDA graph captured once per
 shape (:class:`_GraphedStep`) and kept in a bounded LRU
 (:data:`MAX_GRAPHS`, :func:`clear_graphs`); on the CPU it runs eagerly.
@@ -44,6 +50,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import linalg
+from ..utils import profiling
 from .constraint import Efc
 
 
@@ -278,8 +285,10 @@ class _GraphCache:
                 self.steps.popitem(last=False)
             self.capturing = True
             try:
-                self.steps[key] = _GraphedStep(c, carry, tolerance,
-                                               ls_iterations)
+                with profiling.span("cg.capture"):
+                    self.steps[key] = _GraphedStep(c, carry, tolerance,
+                                                   ls_iterations)
+                    profiling.count("cg.captures")
             finally:
                 self.capturing = False
             self.keys.add(key)
@@ -334,17 +343,27 @@ def _solve_cg(M, Mfac, qacc_smooth, J, D, aref, warmstart,
     carry = (x0, g, Mg, -Mg,
              torch.zeros(batch, dtype=x0.dtype, device=x0.device),
              torch.zeros(batch, dtype=torch.bool, device=x0.device))
-    if x0.is_cuda:
-        graphed, key = _GRAPHS.get(c, carry, tolerance, ls_iterations)
-        carry = graphed.carry
-    for _ in range(iterations):
-        # pinned mode (tolerance 0) runs every iteration, bit-reproducibly;
-        # early exit stops once every instance is done
-        if tolerance != 0.0 and bool(carry[5].all()):
-            break
+    with profiling.span("cg"):
         if x0.is_cuda:
-            graphed.replay()
-            _GRAPHS.replays[key] += 1
-        else:
-            carry = _cg_step(c, carry, tolerance, ls_iterations)
+            graphed, key = _GRAPHS.get(c, carry, tolerance, ls_iterations)
+            carry = graphed.carry
+        run = tests = 0
+        for _ in range(iterations):
+            # pinned mode (tolerance 0) runs every iteration,
+            # bit-reproducibly; early exit stops once every instance is
+            # done, which the host learns from the card
+            if tolerance != 0.0:
+                tests += 1
+                with profiling.span("cg.sync"):
+                    finished = bool(carry[5].all())
+                if finished:
+                    break
+            if x0.is_cuda:
+                graphed.replay()
+                _GRAPHS.replays[key] += 1
+            else:
+                carry = _cg_step(c, carry, tolerance, ls_iterations)
+            run += 1
+        profiling.count("cg.iters", run)
+        profiling.count("cg.syncs", tests)
     return carry[0].clone(), carry[4].clone()

@@ -143,7 +143,6 @@ def test_timer_phases():
     assert box["seconds"] > 0.0
     assert t.counts["a"] == 2 and t.times["a"] >= box["seconds"]
     assert "a" in t.report()
-    assert json.loads(t.as_json())["a"]["count"] == 2
     assert profiling.throughput(10, 2.0, "frames") == "5 frames/s"
 
 
