@@ -178,17 +178,23 @@ def _pair_groups(model: Model, device, dtype) -> SimpleNamespace:
     idx = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
     size = lambda g: torch.as_tensor(model.geom_size[g], dtype=dtype,
                                      device=device)
+    # a box's corners in MuJoCo's corner bit order (mjc_PlaneBox)
+    box_sign = torch.tensor([[1.0 if i & (1 << a) else -1.0
+                              for a in range(3)] for i in range(8)],
+                            dtype=dtype, device=device)
     return SimpleNamespace(
-        eye=torch.eye(3, dtype=dtype, device=device), order=idx(order),
+        eye=torch.eye(3, dtype=dtype, device=device), box_sign=box_sign,
+        order=idx(order),
         groups=[SimpleNamespace(kind=k, g1=idx(g["g1"]), g2=idx(g["g2"]),
                                 s1=size(g["g1"]), s2=size(g["g2"]))
                 for k, g in groups.items()])
 
 
-def _narrow_phase(kind, p1, R1, p2, R2, s1, s2, eye):
+def _narrow_phase(kind, p1, R1, p2, R2, s1, s2, eye, box_sign):
     """Every slot of a group of pairs of one geom-type pair ``kind``: geom
-    frames (..., G, 3) and (..., G, 3, 3), sizes (G, 3).  Returns (dist,
-    pos, frame) with a slot dim after the pair dim, (..., G, nslot, ...)."""
+    frames (..., G, 3) and (..., G, 3, 3), sizes (G, 3), ``box_sign`` a
+    box's (8, 3) corner signs.  Returns (dist, pos, frame) with a slot dim
+    after the pair dim, (..., G, nslot, ...)."""
     dt = p1.dtype
     slots = []
 
@@ -210,9 +216,7 @@ def _narrow_phase(kind, p1, R1, p2, R2, s1, s2, eye):
         # box penetrating a plane short of half its depth has at most 4
         # corners below it, so the masked 8-slot form behaves the same
         n = R1[..., :, 2]
-        sign = torch.tensor([[1.0 if i & (1 << a) else -1.0 for a in range(3)]
-                             for i in range(8)], dtype=dt, device=s2.device)
-        loc = sign * s2[:, None, :]                          # (G, 8, 3)
+        loc = box_sign * s2[:, None, :]                      # (G, 8, 3)
         corners = p2[..., None, :] + (R2[..., None, :, :]
                                       @ loc[..., None]).squeeze(-1)
         for corner in corners.unbind(-2):
@@ -276,7 +280,7 @@ def collide(model: Model, geom_xpos: torch.Tensor,
         slots = _narrow_phase(
             g.kind, geom_xpos[..., g.g1, :], geom_xmat[..., g.g1, :, :],
             geom_xpos[..., g.g2, :], geom_xmat[..., g.g2, :, :], g.s1, g.s2,
-            pg.eye)
+            pg.eye, pg.box_sign)
         outs.append([x.flatten(nd, nd + 1) for x in slots])
     return Contacts(*(torch.cat(x, nd).index_select(nd, pg.order)
                       for x in zip(*outs)))

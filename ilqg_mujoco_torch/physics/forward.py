@@ -15,6 +15,16 @@ class invalidates:
 Integrators: MuJoCo's semi-implicit Euler with implicit joint damping (the
 hopper's, dt=0.002) and classic RK4 on the qpos manifold (the cart-pole's,
 dt=0.02).
+
+The pipeline above the stages is written once, as generators that yield
+each constraint solve's arguments (those of ``solver.solve``) and receive
+its ``SolveOut``; ``solver.drive`` runs one with a given solve.  Run with
+``solver.solve`` it is the plain eager pipeline: :func:`forward_full`,
+and :func:`step` wherever graphs do not engage.  On the card :func:`step`
+runs through ``physics/stepgraph``, which cuts the same pipeline into
+CUDA graphs at each solve's early-exit loop.  Inside
+``profiling.tracing`` each step counts ``step.graphed`` or
+``step.eager``.
 """
 
 from __future__ import annotations
@@ -24,7 +34,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops import linalg
-from . import collision, constraint, smooth, solver, spatial
+from ..utils import profiling
+from . import collision, constraint, smooth, solver, spatial, stepgraph
 from .model import (INT_RK4, JNT_FREE, JNT_HINGE, JNT_SLIDE, Model, State,
                     device_arrays)
 
@@ -76,6 +87,13 @@ def acc_stage(model: Model, pos: PosStage, vel: VelStage, ctrl: torch.Tensor,
               tolerance: float):
     """Actuation + smooth acceleration + constraint solve.  The only stage a
     ctrl perturbation needs to re-run."""
+    return solver.drive(_acc_gen(model, pos, vel, ctrl, qfrc_applied,
+                                 xfrc_applied, qacc_warmstart, iterations,
+                                 tolerance))
+
+
+def _acc_gen(model, pos, vel, ctrl, qfrc_applied, xfrc_applied,
+             qacc_warmstart, iterations, tolerance):
     qfrc_actuator = smooth.actuator_force(model, ctrl)
     qfrc_smooth = (vel.qfrc_passive + qfrc_actuator - vel.qfrc_bias
                    + smooth.applied_force(model, pos.kin, qfrc_applied,
@@ -83,9 +101,8 @@ def acc_stage(model: Model, pos: PosStage, vel: VelStage, ctrl: torch.Tensor,
     qacc_smooth = linalg.cho_solve(pos.Mfac, qfrc_smooth)
     efc = constraint.Efc(J=pos.efc_pos.J, D=pos.efc_pos.D, aref=vel.aref,
                          pos=pos.efc_pos.pos)
-    out = solver.solve(pos.kin.M, pos.Mfac, qacc_smooth, efc,
-                       qacc_warmstart, iterations, tolerance,
-                       ls_iterations=min(model.opt.ls_iterations, 16))
+    out = yield (pos.kin.M, pos.Mfac, qacc_smooth, efc, qacc_warmstart,
+                 iterations, tolerance, min(model.opt.ls_iterations, 16))
     return qfrc_smooth, qacc_smooth, efc, out
 
 
@@ -96,12 +113,16 @@ def forward_full(model: Model, state: State,
 
     ``iterations``/``tolerance`` override the model options (the FD pinning
     hook)."""
+    return solver.drive(_forward_gen(model, state, iterations, tolerance))
+
+
+def _forward_gen(model, state, iterations, tolerance):
     it = model.opt.iterations if iterations is None else iterations
     tol = model.opt.tolerance if tolerance is None else tolerance
 
     pos = pos_stage(model, state.qpos)
     vel = vel_stage(model, pos, state.qpos, state.qvel)
-    qfrc_smooth, qacc_smooth, efc, out = acc_stage(
+    qfrc_smooth, qacc_smooth, efc, out = yield from _acc_gen(
         model, pos, vel, state.ctrl, state.qfrc_applied, state.xfrc_applied,
         state.qacc_warmstart, it, tol)
     new_state = state.replace(qacc=out.qacc, qacc_warmstart=out.qacc)
@@ -159,7 +180,7 @@ _RK4_A = ((0.5,), (0.0, 0.5), (0.0, 0.0, 1.0))
 _RK4_B = (1.0 / 6, 1.0 / 3, 1.0 / 3, 1.0 / 6)
 
 
-def _rk4(model: Model, state: State, iterations, tolerance) -> State:
+def _rk4_gen(model: Model, state: State, iterations, tolerance):
     """Classic RK4 on the qpos manifold (mj_RungeKutta(4)).  Stage 1 reuses
     the already-forwarded qacc; the returned warmstart is the last
     stage's."""
@@ -174,7 +195,7 @@ def _rk4(model: Model, state: State, iterations, tolerance) -> State:
         qpos_i = integrate_pos(model, qpos0, dqv, h)
         qvel_i = qvel0 + h * dqa
         s = s.replace(qpos=qpos_i, qvel=qvel_i)
-        s = forward(model, s, iterations, tolerance)
+        s, _ = yield from _forward_gen(model, s, iterations, tolerance)
         Fq.append(s.qvel)
         Fv.append(s.qacc)
     dqv = sum(b * f for b, f in zip(_RK4_B, Fq))
@@ -185,10 +206,21 @@ def _rk4(model: Model, state: State, iterations, tolerance) -> State:
                          qacc_warmstart=s.qacc_warmstart)
 
 
+def step_gen(model: Model, state: State, iterations: Optional[int] = None,
+             tolerance: Optional[float] = None):
+    """mj_step as a pipeline generator (``solver.drive``): forward + integrate,
+    one solve for Euler, four for RK4."""
+    st, aux = yield from _forward_gen(model, state, iterations, tolerance)
+    if model.opt.integrator == INT_RK4:
+        return (yield from _rk4_gen(model, st, iterations, tolerance))
+    return _euler(model, st, aux)
+
+
 def step(model: Model, state: State, iterations: Optional[int] = None,
          tolerance: Optional[float] = None) -> State:
-    """mj_step: forward + integrate."""
-    st, aux = forward_full(model, state, iterations, tolerance)
-    if model.opt.integrator == INT_RK4:
-        return _rk4(model, st, iterations, tolerance)
-    return _euler(model, st, aux)
+    """mj_step: forward + integrate.  On the card, as CUDA graphs cut at
+    the solves wherever ``stepgraph.eligible`` allows; else eagerly."""
+    if stepgraph.eligible(state):
+        return stepgraph.step(model, state, iterations, tolerance, step_gen)
+    profiling.count("step.eager")
+    return solver.drive(step_gen(model, state, iterations, tolerance))

@@ -201,6 +201,14 @@ def _upload(model: Model, dev, dtype) -> types.SimpleNamespace:
         np.asarray(model.actuator_ctrllimited, dtype=bool), device=dev)
     # the unit motion axes of a free joint's translations
     arrays["eye6"] = torch.eye(6, dtype=dtype, device=dev)
+    # the world body's orientation and the gravity as a spatial
+    # acceleration: constants a step would otherwise copy from the host
+    # on every call, which no CUDA graph can capture
+    arrays["quat_identity"] = torch.tensor([1.0, 0.0, 0.0, 0.0],
+                                           dtype=dtype, device=dev)
+    arrays["gravity6"] = torch.tensor((0.0, 0.0, 0.0)
+                                      + tuple(model.opt.gravity),
+                                      dtype=dtype, device=dev)
     # an index on the device: indexing with host lists copies every call
     arrays["geom_bodyid"] = torch.as_tensor(
         np.asarray(model.geom_bodyid, dtype=np.int64), device=dev)

@@ -79,7 +79,7 @@ def kinematics(model: Model, qpos: torch.Tensor) -> KinOut:
     zero3 = torch.zeros(batch + (3,), dtype=dt, device=dev)
 
     xpos = [zero3]
-    xquat = [full(torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dt, device=dev))]
+    xquat = [full(c.quat_identity)]
     xanchor = [None] * model.njnt
     xaxis = [None] * model.njnt
     S = [None] * model.nv
@@ -178,9 +178,7 @@ def bias_force(model: Model, kin: KinOut, qvel: torch.Tensor) -> torch.Tensor:
     A = torch.einsum("bi,...ix->...bx", mask, Sdot_qd)       # (..., nbody, 6)
 
     if not model.opt.disable_gravity:
-        a0 = torch.tensor((0.0, 0.0, 0.0) + tuple(model.opt.gravity),
-                          dtype=dt, device=dev)
-        A = A - a0
+        A = A - c.gravity6
 
     IV = torch.einsum("...bxy,...by->...bx", kin.inertia, V)
     F = (torch.einsum("...bxy,...by->...bx", kin.inertia, A)

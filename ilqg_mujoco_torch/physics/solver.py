@@ -25,11 +25,20 @@ test the span ``cg.sync``, and each capture of a graph the span
 the card and the CPU alike.
 
 On the card each iteration is one replay of a CUDA graph captured once per
-shape (:class:`_GraphedStep`) and kept in a bounded LRU
-(:data:`MAX_GRAPHS`, :func:`clear_graphs`); on the CPU it runs eagerly.
+shape (:class:`_GraphedStep`); on the CPU it runs eagerly.  The direct
+solves (:func:`_solve_cg`) keep theirs in a bounded LRU
+(:data:`MAX_GRAPHS`, :func:`clear_graphs`); ``physics/stepgraph`` keeps
+those of the physics step's solves with the step's own graphs.
 Both run the same operations on the same values.  The cache counts the
 replays of each shape, which no dispatch mode sees (``tools/roofline``
 counts a replay's work as one :func:`step_into` at its shape).
+
+A solve is three parts, so that ``physics/stepgraph`` can capture the
+first and the last into the physics step's own graphs and cut them only
+at the loop: :func:`cg_prologue` (the warm-start choice, the first
+gradient and the carry), :func:`cg_loop` (the host-tested iterations) and
+:func:`finish` (the constraint force).  :func:`drive` runs the physics'
+pipeline generators, answering each solve they yield.
 
 The constraint Jacobian J is per instance, (..., nefc, nv), when the model
 has contacts, and one (nefc, nv) for the whole batch when it has limit
@@ -70,6 +79,24 @@ def solve(M: torch.Tensor, Mfac, qacc_smooth: torch.Tensor, efc: Efc,
     x, niter = _SolveQacc.apply(M, Mfac, qacc_smooth, efc.J, efc.D,
                                 efc.aref, warmstart, iterations, tolerance,
                                 ls_iterations)
+    return finish(efc, x, niter)
+
+
+def drive(gen, solve=solve):
+    """Run a pipeline generator (``forward.step_gen`` and the stages'
+    generators) to its end and return its value, each constraint solve it
+    yields (the arguments of :func:`solve`) answered by ``solve(*args)``."""
+    out = None
+    while True:
+        try:
+            args = gen.send(out)
+        except StopIteration as stop:
+            return stop.value
+        out = solve(*args)
+
+
+def finish(efc: Efc, x: torch.Tensor, niter: torch.Tensor) -> SolveOut:
+    """The solve's epilogue: the constraint force at the solution ``x``."""
     jar = linalg.mv(efc.J, x) - efc.aref
     f = torch.where(jar < 0, -efc.D * jar, torch.zeros_like(jar))
     qfrc_constraint = linalg.mv(efc.J.transpose(-1, -2), f)
@@ -201,25 +228,38 @@ def step_into(c, carry, tolerance, ls_iterations):
         dst.copy_(src)
 
 
+_SIDE: dict = {}
+
+
+def side_stream(device) -> torch.cuda.Stream:
+    """The device's one stream for captures and their warm-ups: a stream
+    that runs cuBLAS keeps a workspace of its own (32 MiB on the H100), so
+    every capture shares this one."""
+    if device not in _SIDE:
+        _SIDE[device] = torch.cuda.Stream(device)
+    return _SIDE[device]
+
+
 class _GraphedStep:
     """One CG iteration captured as a CUDA graph over static buffers: a
     replay launches the ~200 kernels of an iteration at once, where the
     eager loop pays the host's launch cost for each.  The replay runs the
     same kernels on the same values, so the result is the eager one.
 
-    The capture runs under the tensors' own device, on a side stream made
-    there: a capture on another device's streams would record nothing, and
-    each replay would leave the carry as it was.  :meth:`replay` switches
-    to that device as well."""
+    The capture runs under the tensors' own device, on its side stream
+    (:func:`side_stream`): a capture on another device's streams would
+    record nothing, and each replay would leave the carry as it was.
+    :meth:`replay` switches to that device as well."""
 
     def __init__(self, c, carry, tolerance, ls_iterations):
+        self.key = graph_key(c, carry, tolerance, ls_iterations)
         self.device = carry[0].device
         self.c = tuple(torch.empty_like(t) for t in c)
         self.carry = tuple(torch.empty_like(t) for t in carry)
         self.args = (tolerance, ls_iterations)
         self.load(c, carry)       # the warm-up runs on real values
         with torch.cuda.device(self.device):
-            side = torch.cuda.Stream(self.device)
+            side = side_stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):       # warm-up before the capture
                 for _ in range(2):
@@ -273,10 +313,9 @@ class _GraphCache:
         self.replays: Counter = Counter()
         self.capturing = False
 
-    def get(self, c, carry, tolerance, ls_iterations) -> tuple:
+    def get(self, c, carry, tolerance, ls_iterations) -> _GraphedStep:
         """The captured step for these shapes, loaded with ``c`` and
-        ``carry`` (one per shape, dtype, device and solver setting), and
-        its key."""
+        ``carry`` (one per shape, dtype, device and solver setting)."""
         key = graph_key(c, carry, tolerance, ls_iterations)
         if key in self.steps:
             self.steps.move_to_end(key)
@@ -295,7 +334,7 @@ class _GraphCache:
             self.captures += 1
         step = self.steps[key]
         step.load(c, carry)       # the warm-up moved the carry
-        return step, key
+        return step
 
     def static_bytes(self) -> int:
         """The bytes of the held steps' static buffers (each step's copy
@@ -313,15 +352,26 @@ class _GraphCache:
 
 
 _GRAPHS = _GraphCache(MAX_GRAPHS)
+_ON_CLEAR: list = []
+
+
+def on_clear(clear):
+    """Have :func:`clear_graphs` call ``clear()`` too: a cache of captured
+    graphs above this module (``physics/stepgraph``), which drops what it
+    holds and returns the devices it ran on."""
+    _ON_CLEAR.append(clear)
 
 
 def clear_graphs():
-    """Drop every captured step and release the allocator's cached blocks
-    on the current card and on every card that held a captured step (for
-    a caller switching to other shapes, or retrying after running out of
-    memory)."""
+    """Drop every captured step, the CG iterations here and those of the
+    caches registered with :func:`on_clear`, and release the allocator's
+    cached blocks on the current card and on every card that held a
+    captured step (for a caller switching to other shapes, or retrying
+    after running out of memory)."""
     devices = {dev for key in _GRAPHS.keys for *_, dev in key[0]
                if dev.startswith("cuda")}
+    for clear in _ON_CLEAR:
+        devices |= {str(dev) for dev in clear()}
     _GRAPHS.clear()
     if torch.cuda.is_initialized():
         torch.cuda.empty_cache()
@@ -330,9 +380,10 @@ def clear_graphs():
                 torch.cuda.empty_cache()
 
 
-def _solve_cg(M, Mfac, qacc_smooth, J, D, aref, warmstart,
-              iterations, tolerance, ls_iterations):
-    c = (M, Mfac, qacc_smooth, J, D, aref)
+def cg_prologue(c, warmstart) -> tuple:
+    """The carry a solve of ``c = (M, Mfac, qacc_smooth, J, D, aref)``
+    starts from: (x, g, M^-1 g, p, iterations, done)."""
+    _, Mfac, qacc_smooth = c[:3]
     # MuJoCo warmstart policy: start from the better of (qacc_warmstart,
     # qacc_smooth)
     x0 = torch.where((_cost(c, warmstart) < _cost(c, qacc_smooth))[..., None],
@@ -340,30 +391,47 @@ def _solve_cg(M, Mfac, qacc_smooth, J, D, aref, warmstart,
     g = _grad(c, x0)
     Mg = linalg.cho_solve(Mfac, g)
     batch = x0.shape[:-1]
-    carry = (x0, g, Mg, -Mg,
-             torch.zeros(batch, dtype=x0.dtype, device=x0.device),
-             torch.zeros(batch, dtype=torch.bool, device=x0.device))
+    return (x0, g, Mg, -Mg,
+            torch.zeros(batch, dtype=x0.dtype, device=x0.device),
+            torch.zeros(batch, dtype=torch.bool, device=x0.device))
+
+
+def cg_loop(c, carry, iterations, tolerance, ls_iterations,
+            graphed: _GraphedStep = None) -> tuple:
+    """The CG iterations from ``carry``: each one a replay of ``graphed``,
+    loaded with ``c`` and ``carry``, where it is given, else eager.
+    Returns the last carry (``graphed.carry`` itself on the card)."""
+    run = tests = 0
+    for _ in range(iterations):
+        # pinned mode (tolerance 0) runs every iteration,
+        # bit-reproducibly; early exit stops once every instance is
+        # done, which the host learns from the card
+        if tolerance != 0.0:
+            tests += 1
+            with profiling.span("cg.sync"):
+                finished = bool(carry[5].all())
+            if finished:
+                break
+        if graphed is not None:
+            graphed.replay()
+            _GRAPHS.replays[graphed.key] += 1
+        else:
+            carry = _cg_step(c, carry, tolerance, ls_iterations)
+        run += 1
+    profiling.count("cg.iters", run)
+    profiling.count("cg.syncs", tests)
+    return carry
+
+
+def _solve_cg(M, Mfac, qacc_smooth, J, D, aref, warmstart,
+              iterations, tolerance, ls_iterations):
+    c = (M, Mfac, qacc_smooth, J, D, aref)
+    carry = cg_prologue(c, warmstart)
     with profiling.span("cg"):
-        if x0.is_cuda:
-            graphed, key = _GRAPHS.get(c, carry, tolerance, ls_iterations)
-            carry = graphed.carry
-        run = tests = 0
-        for _ in range(iterations):
-            # pinned mode (tolerance 0) runs every iteration,
-            # bit-reproducibly; early exit stops once every instance is
-            # done, which the host learns from the card
-            if tolerance != 0.0:
-                tests += 1
-                with profiling.span("cg.sync"):
-                    finished = bool(carry[5].all())
-                if finished:
-                    break
-            if x0.is_cuda:
-                graphed.replay()
-                _GRAPHS.replays[key] += 1
-            else:
-                carry = _cg_step(c, carry, tolerance, ls_iterations)
-            run += 1
-        profiling.count("cg.iters", run)
-        profiling.count("cg.syncs", tests)
+        graphed = None
+        if carry[0].is_cuda:
+            graphed = _GRAPHS.get(c, carry, tolerance, ls_iterations)
+            c, carry = graphed.c, graphed.carry
+        carry = cg_loop(c, carry, iterations, tolerance, ls_iterations,
+                        graphed)
     return carry[0].clone(), carry[4].clone()
